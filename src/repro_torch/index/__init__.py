@@ -3,8 +3,8 @@
 
 Scoring is a `ScorerBackend` built from one table snapshot, and
 `ToolIndexManager` keeps the index consistent with the table's
-swap/rollback protocol (exact fallback on the live snapshot while an index
-is stale, masked batches to the exact path — see `manager.py`).
+swap/rollback protocol (inline rebuild on a new version, masked batches to
+the exact path — see `manager.py`).
 
 Backend-selection guide
 =======================
@@ -44,8 +44,8 @@ BACKENDS = {
 }
 
 
-def build_backend(kind: str, table, table_version: int, **opts) -> ScorerBackend:
+def build_backend(kind: str, table, table_version: int, device=None) -> ScorerBackend:
     """Construct a registered backend over one table snapshot."""
     if kind not in BACKENDS:
         raise ValueError(f"unknown backend {kind!r} (available: {sorted(BACKENDS)})")
-    return BACKENDS[kind](table, table_version, **opts)
+    return BACKENDS[kind](table, table_version, device=device)

@@ -1,8 +1,8 @@
 """ToolIndexManager: version-tracked index lifecycle between the database
 and the scorer backends.
 
-Counterpart of `repro/index/manager.py`; the lifecycle is unchanged and
-every backend (and the exact fallback) lives on the manager's `device` —
+Counterpart of `repro/index/manager.py`, without its background rebuild
+thread (every ported build is inline); every backend (and the exact fallback) lives on the manager's `device` —
 `None` means the CUDA card, and a machine without one raises.
 
 The swap-compatibility problem this layer solves: an index (a
@@ -15,31 +15,28 @@ version they are reported under*:
   * every `topk` call starts from an atomic `db.snapshot()`;
   * if the built backend matches the snapshot version (and can honor the
     batch's candidate mask), it serves;
-  * otherwise the call is served by the exact dense fallback **on the
-    snapshot itself** — a `DenseBackend` over that snapshot, rebuilt only
-    on version change, so it is numerically identical to the dense index —
-    and an async rebuild for the new version is kicked off (at most one
-    in-flight build per version).
+  * otherwise the index is rebuilt inline for the snapshot's version and
+    serves. Every ported backend's build is one device upload
+    (`build_is_cheap`), so no batch waits on a background thread; IVF,
+    whose k-means build needs one, comes in a later slice;
+  * a masked batch the backend cannot honor, or a swap that lands between
+    the snapshot and the rebuild, is served by the exact dense path **on
+    the snapshot itself** — a `DenseBackend` over that snapshot, rebuilt
+    only on version change, so it is numerically identical to the dense
+    index.
 
 Rebuilds are also triggered eagerly: the manager registers a
 `ToolsDatabase.add_swap_listener` hook at construction, so a control-plane
-swap or guard rollback starts the rebuild immediately instead of on the
-next unlucky request. `async_rebuild=False` makes builds synchronous (the
-swap listener blocks until the index is fresh) — deterministic for tests
-and offline jobs; serving processes keep the default. Backends whose build
-is one device upload (`build_is_cheap`: dense, fused) always rebuild
-inline — under swap churn a rebuild thread per version costs more than the
-build itself and doubles the uploads; only genuinely expensive builds go
-to a background thread (none is ported yet: IVF comes later).
+swap or guard rollback rebuilds the index before the next request.
 
-A failed build (bad table, backend bug) is counted in
-`stats["build_failures"]` and leaves the fallback serving — an index is an
-optimization, never a correctness dependency.
+A failed build is counted in `stats["build_failures"]` and raised: the
+construction, or the serving call that needed the index, fails. The
+configured backend (on the card, the `topk_sim` kernel) never hands its
+batches to the exact path quietly.
 """
 from __future__ import annotations
 
 import threading
-import time  # time.sleep only; clocks come from repro_torch.obs.clock
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -68,11 +65,11 @@ class _IndexInstruments:
         self.build_ms = registry.histogram("index_build_ms")
 
 
-def _build_backend(kind: str, table: np.ndarray, table_version: int, **opts):
+def _build_backend(kind: str, table: np.ndarray, table_version: int, device):
     # local import so manager <-> package __init__ stay cycle-free
     from repro_torch.index import build_backend
 
-    return build_backend(kind, table, table_version, **opts)
+    return build_backend(kind, table, table_version, device=device)
 
 
 class ToolIndexManager:
@@ -80,8 +77,6 @@ class ToolIndexManager:
         self,
         db: ToolsDatabase,
         backend: str = "dense",
-        backend_opts: Optional[dict] = None,
-        async_rebuild: bool = True,
         watch_swaps: bool = True,
         metrics: Union[MetricsRegistry, bool, None] = None,
         bus: Optional["EventBus"] = None,  # repro.obs.events (not ported yet)
@@ -93,24 +88,17 @@ class ToolIndexManager:
             raise ValueError(
                 f"unknown backend {backend!r} (available: {sorted(BACKENDS)})"
             )
+        if not BACKENDS[backend].build_is_cheap:
+            raise ValueError(f"backend {backend!r} needs a background build")
         self.db = db
         self.device = resolve_device(device)
         self.backend_kind = backend
-        self.backend_opts = dict(backend_opts or {})
-        # cheap builds (dense/fused: one device upload) always run inline —
-        # a rebuild thread per swap costs more than the build and doubles
-        # uploads (listener build + fallback cache) under swap churn
-        self._inline_build = bool(
-            getattr(BACKENDS[backend], "build_is_cheap", False)
-        )
-        self.async_rebuild = async_rebuild and not self._inline_build
         self._lock = threading.Lock()
-        # waiters for an in-flight build (refresh(block=True) must join the
-        # running build, not duplicate a 10+ s k-means); shares self._lock
+        # waiters for an in-flight build (a concurrent serving call joins
+        # the running build instead of duplicating it); shares self._lock
         self._build_cond = threading.Condition(self._lock)
         self._backend = None
         self._building_for: Optional[int] = None  # version with an in-flight build
-        self._failed_for: Optional[int] = None  # version whose build failed
         self._fallback: Optional[DenseBackend] = None  # exact path, per version
         self.stats: Dict[str, int] = {
             "served_index": 0,
@@ -129,24 +117,18 @@ class ToolIndexManager:
         self.bus = bus
         # which path served the calling thread's last topk ("index:<kind>" |
         # "exact"): thread-local so concurrent batches don't cross-stamp
-        # their traces during a fallback-serving window
+        # their traces
         self._tls = threading.local()
-        # fail fast on misconfigured backend_opts: a tiny synchronous
-        # validation build surfaces TypeError/ValueError at construction
-        # instead of a silent build-failure loop behind the fallback
-        _, probe_table = db.snapshot()
-        _build_backend(
-            backend, np.asarray(probe_table[:64]), -1, device=self.device,
-            **self.backend_opts,
-        )
+        self.refresh()  # a failed first build raises here
         self._watching = watch_swaps
         if watch_swaps:
             db.add_swap_listener(self._on_swap)
-        self.refresh(block=not self.async_rebuild)
 
     # ------------------------------------------------------------- lifecycle
     def _on_swap(self, new_version: int) -> None:
-        self.refresh(block=not self.async_rebuild)
+        # the database swallows a listener's exception; the serving call
+        # that finds the index stale retries the build and raises
+        self.refresh()
 
     def close(self) -> None:
         """Unregister from the database's swap listeners (idempotent).
@@ -166,55 +148,25 @@ class ToolIndexManager:
             backend = self._backend
         return backend is not None and backend.table_version == self.db.table_version
 
-    def wait_ready(self, timeout_s: float = 60.0, poll_s: float = 0.01) -> bool:
-        """Block until the index is fresh (benchmarks/tests); True on success.
-
-        Returns False immediately (not after the full timeout) when the
-        build for the live version has already failed and nothing is
-        retrying it — callers must check the result: False means the exact
-        fallback is serving, not the configured backend.
-        """
-        deadline = clock.monotonic() + timeout_s
-        while clock.monotonic() < deadline:
-            if self.is_fresh():
-                return True
-            with self._lock:
-                building = self._building_for is not None
-                failed_version = self._failed_for
-            if not building and failed_version == self.db.table_version:
-                return False  # doomed: failed build, no retry in flight
-            time.sleep(poll_s)
+    def wait_ready(self) -> bool:
+        """Build the index for the live version if it is stale; True when
+        it is fresh. A failed build raises."""
+        self.refresh()
         return self.is_fresh()
 
-    def refresh(self, block: bool = False) -> None:
-        """Ensure a build for the current table version is done or in flight."""
+    def refresh(self) -> None:
+        """Build the index for the current table version, inline, unless it
+        is fresh or another thread is building it (then wait for that)."""
         version, table = self.db.snapshot()
         with self._lock:
-            if self._backend is not None and self._backend.table_version == version:
+            if self._backend is not None and self._backend.table_version >= version:
                 return
             if self._building_for == version:
-                if not block:
-                    return  # one in-flight build per version is enough
-                # join the in-flight build instead of duplicating it; when
-                # it finishes (installed or failed) this refresh is done
                 while self._building_for == version:
                     self._build_cond.wait()
                 return
-            if self._failed_for == version and not block:
-                # this version's build already failed (counted in stats);
-                # don't respawn a doomed build per serving call — the next
-                # swap, or an explicit refresh(block=True), retries
-                return
             self._building_for = version
-        if block:
-            self._build(version, np.asarray(table))
-        else:
-            threading.Thread(
-                target=self._build,
-                args=(version, np.asarray(table)),
-                name=f"index-rebuild-v{version}",
-                daemon=True,
-            ).start()
+        self._build(version, np.asarray(table))
 
     def _build(self, version: int, table: np.ndarray) -> None:
         bus, obs = self.bus, self._obs
@@ -222,23 +174,11 @@ class ToolIndexManager:
             bus.publish("rebuild_start", plane="index", version=version,
                         backend=self.backend_kind)
         t0 = clock.perf()
-        opts = dict(self.backend_opts)
-        with self._lock:
-            prev = self._backend
-        if prev is not None and hasattr(prev, "warm_start_state"):
-            # swap-triggered rebuild: seed the new build from the outgoing
-            # index's state (a backend with iterative builds converges in a
-            # fraction of the iterations; a stale/incompatible state is
-            # validated and ignored by the backend, never an error)
-            opts["warm_start"] = prev.warm_start_state()
         try:
-            backend = _build_backend(
-                self.backend_kind, table, version, device=self.device, **opts
-            )
+            backend = _build_backend(self.backend_kind, table, version, self.device)
         except Exception as exc:
             with self._lock:
                 self.stats["build_failures"] += 1
-                self._failed_for = version
                 if self._building_for == version:
                     self._building_for = None
                 self._build_cond.notify_all()
@@ -247,7 +187,7 @@ class ToolIndexManager:
             if bus is not None:
                 bus.publish("rebuild_failure", plane="index", version=version,
                             backend=self.backend_kind, error=repr(exc))
-            return  # the exact fallback keeps serving
+            raise
         build_ms = clock.duration_ms(t0)
         with self._lock:
             # never replace a fresher index with a slower build's older one
@@ -280,15 +220,16 @@ class ToolIndexManager:
         with self._lock:
             backend = self._backend
         if backend is None or backend.table_version != version:
-            # cheap builds (a device upload) run inline; expensive builds
-            # go async and this batch serves the exact fallback
-            self.refresh(block=self._inline_build)
+            self.refresh()  # inline: one device upload; a failure raises
             with self._lock:
                 backend = self._backend
-        maskable = candidate_mask is None or (
-            backend is not None and backend.supports_masks
-        )
-        if backend is not None and backend.table_version == version and maskable:
+            if backend is None or backend.table_version < version:
+                # another thread's build for this version failed
+                raise RuntimeError(
+                    f"no {self.backend_kind} index for table version {version}"
+                )
+        maskable = candidate_mask is None or backend.supports_masks
+        if backend.table_version == version and maskable:
             scores, idx = backend.topk(queries, k, candidate_mask)
             with self._lock:  # counters race under concurrent serving
                 self.stats["served_index"] += 1

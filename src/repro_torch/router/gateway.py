@@ -131,7 +131,6 @@ class SemanticRouter:
         outcome_sink: Optional[Callable[["OutcomeEvent"], None]] = None,
         index: Optional[ToolIndexManager] = None,
         backend: str = "dense",
-        backend_opts: Optional[dict] = None,
         stages: Optional[StageSet] = None,
         stage_history_limit: int = 4,
         metrics: Union[MetricsRegistry, bool, None] = None,
@@ -177,14 +176,13 @@ class SemanticRouter:
         self.outcome_sink = outcome_sink
         self._outcome_lock = threading.Lock()
         # the scoring layer: a shared ToolIndexManager, or one owned by this
-        # router built from (backend, backend_opts) on this router's device
+        # router built from `backend` on this router's device
         self._owns_index = index is None
         # an owned manager inherits this router's bus at construction so its
-        # very first build publishes rebuild events (attaching a bus after
-        # the fact races the constructor's async build thread); a shared
-        # manager keeps whatever bus its creator wired
+        # very first build publishes rebuild events; a shared manager keeps
+        # whatever bus its creator wired
         self.index = index if index is not None else ToolIndexManager(
-            db, backend=backend, backend_opts=backend_opts, bus=bus, device=device
+            db, backend=backend, bus=bus, device=device
         )
         self.device = self.index.device
         # telemetry: metrics default ON against the process registry;

@@ -87,9 +87,9 @@ class ToolsDatabase:
     def add_swap_listener(self, fn: Callable[[int], None]) -> None:
         """Register `fn(new_version)` to run after every swap/rollback.
 
-        The index layer uses this to kick async index rebuilds the moment a
-        new table deploys; the serving path keeps an exact fallback until the
-        rebuilt index lands, so listeners are fire-and-forget. Exceptions
+        The index layer uses this to rebuild its index the moment a new
+        table deploys; a serving call that still finds the index stale
+        rebuilds it itself, so listeners are fire-and-forget. Exceptions
         raised by a listener are swallowed — a broken rebuild hook must never
         turn a successful deployment into a failed one.
 

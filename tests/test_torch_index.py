@@ -169,8 +169,7 @@ def test_manager_masked_batches_go_exact(scaled, kind):
     table, queries = scaled
     jdb, tdb = _dbs(table)
     jman = JaxToolIndexManager(jdb, backend="dense", async_rebuild=False, metrics=False)
-    tman = ToolIndexManager(tdb, backend=kind, async_rebuild=False, metrics=False,
-                            device=CPU)
+    tman = ToolIndexManager(tdb, backend=kind, metrics=False, device=CPU)
     mask = (np.random.default_rng(3).random((8, SCALED_T)) < 0.01).astype(np.float32)
     js, ji, jv = jman.topk(queries[:8], 5, mask)
     ts, ti, tv = tman.topk(queries[:8], 5, mask)
@@ -193,7 +192,7 @@ def test_manager_rebuilds_inline_on_cas_swap(scaled):
     jdb, tdb = _dbs(table)
     jman = JaxToolIndexManager(jdb, backend="pallas", async_rebuild=False, metrics=False)
     tman = ToolIndexManager(tdb, backend="fused", metrics=False, device=CPU)
-    assert tman.wait_ready(5.0) and tman.stats["rebuilds"] == 1
+    assert tman.wait_ready() and tman.stats["rebuilds"] == 1
     moved = table[np.random.default_rng(0).permutation(SCALED_T)]
     with pytest.raises(ConflictError):
         tdb.swap_table(moved, expect_current=5)
@@ -228,3 +227,30 @@ def test_manager_stale_index_serves_exact_then_recovers(scaled):
     )
     tman.close()
     tman.close()
+
+
+@pytest.mark.parametrize("kind", ["dense", "fused"])
+def test_manager_failed_build_raises(scaled, kind, monkeypatch):
+    """A failed build is counted and raised, at construction and when a
+    serving call finds the index stale; no batch moves to the exact path."""
+    import repro_torch.index as index_pkg
+
+    table, queries = scaled
+    _, tdb = _dbs(table)
+    tman = ToolIndexManager(tdb, backend=kind, metrics=False, device=CPU)
+
+    def broken(*args, **kwargs):
+        raise MemoryError("upload failed")
+
+    monkeypatch.setattr(index_pkg, "build_backend", broken)
+    tdb.swap_table(table[::-1].copy(), expect_current=0)  # listener fails quietly
+    assert tman.stats["build_failures"] == 1 and not tman.is_fresh()
+    with pytest.raises(MemoryError):
+        tman.topk(queries[:4], 5)
+    assert tman.stats["build_failures"] == 2
+    assert tman.stats["served_exact"] == 0 and tman.last_path() == "unknown"
+    with pytest.raises(MemoryError):
+        ToolIndexManager(tdb, backend=kind, metrics=False, device=CPU)
+    monkeypatch.undo()
+    assert tman.wait_ready() and tman.topk(queries[:4], 5)[2] == 1
+    assert tman.last_path() == f"index:{kind}"
