@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path and model pool once on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,16 +9,34 @@ PyTorch built for CUDA. It imports nothing of JAX and nothing of the JAX
 package `repro`. Phases, each of which fails the run by raising:
 
   1. device  — require CUDA; print the card's name and power limit;
-  2. build   — compile the hand-written kernels from `src/repro_torch`;
+  2. build   — compile the hand-written kernels from `src/repro_torch`, one
+               nvcc per source, all started together;
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card, at the main path's shapes and at edge cases;
+               card, at the main paths' shapes and at edge cases; the flash
+               attention and SSD scan kernels also at the inputs that a
+               2,048-token prompt gives them in layers 0 and 31 of
+               full-width hymba-1.5b, and the whole reduced model with the
+               kernels against the same model with the plain versions.
+               The flash kernel and its plain version are also measured
+               against float64 at the init's own attention scale, which
+               the pool rescales (no tolerance: a record of why);
   4. serve   — route 600 ToolBench-like queries over a 100,000-tool table
                through `SemanticRouter(backend="fused")`, bare and with an
                adapter, in batches of 8 and of 64; re-rank at the native
                2,413 tools; a CAS table swap. Results must equal those of
                the dense backend on the card, and the kernel's launch count
                must rise during this phase;
-  5. times   — CUDA-event times of each kernel, its plain version and the
+  5. pool    — serve 16 routed requests (prompts of 1,100-2,048 tokens, 16
+               new tokens each) through `ContinuousBatcher` over full-width
+               hymba-1.5b in bf16 (wq, wk, wv at a d_model fan-in) with 4
+               slots, tool-routed at admission through the fused backend
+               at the native 2,413 tools. Every
+               request must get 16 tokens in the vocabulary from finite
+               logits, its tools must equal the dense backend's, and each
+               prefill must launch flash_attention and ssd_scan once per
+               layer; then profile a second short drain for the device's
+               busy and idle share;
+  6. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes; per-phase p50 and per-batch p50/p99 of the gateway.
 
@@ -27,21 +46,37 @@ convolutions: every float32 product here runs in full float32.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
+import functools
 import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
-# H100 SXM data-sheet peaks (dense, 700 W): HBM3 bytes/s and float32 FLOP/s
-# outside the tensor cores; the kernel's float32 FMAs run on the latter
+# H100 SXM data-sheet peaks (dense, 700 W): HBM3 bytes/s, float32 FLOP/s
+# outside the tensor cores, and bf16 FLOP/s on the tensor cores (a bf16
+# kernel's bound counts its work at the rate the card could do it)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 NEAR_TIE = 1e-5  # clone tables: adjacent plain-version scores closer than this may swap
 SCORE_ATOL = 1e-5
 N_TOOLS = 100_000
 BATCH_SIZES = (8, 64)
 DEVICE = "cuda"
+# tolerances of tests/test_kernels.py; a bf16 SSD output may also differ by
+# one bf16 ulp (2**-7 relative): both versions round one float32 value
+FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SSD_ATOL = 1e-3
+BF16_ULP = 2**-7
+# the model pool
+POOL_ARCH = "hymba-1.5b"
+POOL_REQUESTS, POOL_SLOTS, POOL_NEW_TOKENS = 16, 4, 16
+POOL_PROMPT_LENS = (1100, 2048)  # inclusive; all past hymba's 1,024-token window
+CAPTURE_LEN = 2048  # the prompt whose layer inputs the kernels are checked at
 
 
 def log(*parts) -> None:
@@ -109,13 +144,103 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def topk_bound(n_q: int, n_t: int, d: int, k: int):
-    """(ms, "bytes" | "operations"): the least time for this call's work."""
-    nbytes = 4 * (n_q * d + n_t * d) + n_q * k * (4 + 8)
-    flops = 2 * n_q * n_t * d
+def bound(nbytes: float, flops: float, peak_flop_per_s: float):
+    """(ms, "bytes" | "operations"): the least time for this work."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def topk_bound(n_q: int, n_t: int, d: int, k: int):
+    """Each input read once, the outputs written once; 2QTD float32 FLOPs."""
+    return bound(4 * (n_q * d + n_t * d) + n_q * k * (4 + 8), 2 * n_q * n_t * d,
+                 PEAK_F32_FLOP_PER_S)
+
+
+def flash_bound(q, k, v, causal: bool, window: int, q_offset: int):
+    """q, k, v read once and the output written once; 4*hd FLOPs for every
+    live (unmasked) query-key pair of every query row."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ref import attention_mask
+
+    pairs = int(attention_mask(q.shape[1], k.shape[1], causal, window, q_offset,
+                               q.device).sum())
+    peak = PEAK_BF16_FLOP_PER_S if q.dtype == torch.bfloat16 else PEAK_F32_FLOP_PER_S
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return bound(nbytes, 4 * q.shape[2] * pairs * q.shape[0], peak)
+
+
+def ssd_bound(x, dt, a_log, bm, cm):
+    """Inputs read once, y and the float32 state written once; the least
+    float32 work of the recurrence, 4*P*N FLOPs per step and head: the
+    state update (x*dt) B^T as one multiply-add per state entry and the
+    readout state C as another (the decay can be applied once a chunk)."""
+    b, s, h, p = x.shape
+    n = bm.shape[-1]
+    flops = 4 * b * s * h * p * n
+    nbytes = (2 * x.numel() * x.element_size() + 4 * b * h * p * n
+              + sum(t.numel() * t.element_size() for t in (dt, a_log, bm, cm)))
+    return bound(nbytes, flops, PEAK_F32_FLOP_PER_S)
+
+
+def pool_config():
+    """The pool's model: hymba-1.5b at full width and depth, in its bf16."""
+    from repro_torch.configs import get_config
+
+    return get_config(POOL_ARCH)
+
+
+def capture_prefill(cfg, params, tokens, wanted):
+    """Run one prefill through the port's own layer functions and return
+    the flash_attention and ssd_scan arguments of the layers in `wanted`:
+    {"flash": {layer: (args, kwargs)}, "ssd": {...}}."""
+    import torch
+
+    from repro_torch.models import layers, model as M, ssm
+
+    captured = {"flash": {}, "ssd": {}}
+    calls = {"flash": 0, "ssd": 0}
+    originals = layers.flash_attention, ssm.ssd_ops.ssd_scan
+
+    def capture(key, fn):
+        def wrapper(*args, **kwargs):
+            i = calls[key]
+            calls[key] += 1
+            if i in wanted:
+                captured[key][i] = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                          for a in args), dict(kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    layers.flash_attention = capture("flash", originals[0])
+    ssm.ssd_ops.ssd_scan = capture("ssd", originals[1])
+    try:
+        logits, _ = M.prefill(cfg, params, {"tokens": tokens})
+    finally:
+        layers.flash_attention, ssm.ssd_ops.ssd_scan = originals
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite logits in the captured prefill")
+    if calls != {"flash": cfg.n_layers, "ssd": cfg.n_layers}:
+        raise AssertionError(f"captured prefill made {calls} kernel calls")
+    return captured
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The model's layers call the kernels' plain versions inside the block."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import layers, ssm
+
+    originals = layers.flash_attention, ssm.ssd_ops
+    layers.flash_attention = functools.partial(flash_ops.flash_attention, use_kernel=False)
+    ssm.ssd_ops = types.SimpleNamespace(
+        ssd_scan=functools.partial(ssd_ops.ssd_scan, use_kernel=False))
+    try:
+        yield
+    finally:
+        layers.flash_attention, ssm.ssd_ops = originals
 
 
 def unit_rows(n, d, gen):
@@ -145,10 +270,17 @@ def main() -> int:
     from repro_torch.core.reranker import LAYERS
     from repro_torch.data.benchmarks import make_toolbench_like, scale_tool_corpus
     from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
     from repro_torch.kernels.topk_sim.ref import topk_sim_ref
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.router.gateway import PHASES, SemanticRouter
+    from repro_torch.router.scheduler import ContinuousBatcher, Request
     from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
 
     t_start = time.perf_counter()
@@ -169,12 +301,20 @@ def main() -> int:
     gen.manual_seed(0)
 
     # ----------------------------------------------------------------- 2. build
-    topk_kernel.build()
-    info = topk_kernel.build_info
-    log(f"build: topk_sim {info['seconds']:.2f} s (cached={info['cached']}) -> {info['path']}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    kernel_modules = {"topk_sim": topk_kernel, "flash_attention": flash_kernel,
+                      "ssd_scan": ssd_kernel}
+    t_build = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(kernel_modules)) as pool:
+        # one nvcc per source, all running together; a failed build raises here
+        list(pool.map(lambda mod: mod.LIBRARY.load(), kernel_modules.values()))
+    for name, mod in kernel_modules.items():
+        info = mod.build_info
+        log(f"build: {name} ready after {info['seconds']:.2f} s (cached={info['cached']}) "
+            f"-> {info['path']}")
+        for line in info["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
+    log(f"build: all kernels in {time.perf_counter() - t_build:.2f} s")
 
     # --------------------------------------------------- 3. kernels vs plain
     max_err = 0.0
@@ -226,7 +366,144 @@ def main() -> int:
                            max_abs_err=err, near_tie_rows=0))
         log(f"kernel check ties Q={n_q} T={ties.shape[0]} k={k}: exact, max|ds|={err:.3g}")
 
-    # ------------------------------------------------------ 4. the main path
+    flash_checks, ssd_checks = [], []
+
+    def check_flash(name, q, k, v, causal=True, window=0, q_offset=0):
+        """Kernel against plain version within FLASH_ATOL of the dtype."""
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        got = flash_kernel.flash_attention_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = attention_ref(q, k, v, **kw)
+        dtype = str(q.dtype).replace("torch.", "")
+        err = float((got.float() - ref.float()).abs().max())
+        if not err <= FLASH_ATOL[dtype]:
+            raise AssertionError(f"flash_attention {name}: max|d|={err:.3g} > "
+                                 f"{FLASH_ATOL[dtype]} ({dtype})")
+        flash_checks.append(dict(case=name, dtype=dtype, bh=q.shape[0], bhkv=k.shape[0],
+                                 sq=q.shape[1], skv=k.shape[1], hd=q.shape[2], **kw,
+                                 max_abs_err=err, atol=FLASH_ATOL[dtype]))
+        log(f"kernel check flash_attention {name} {dtype} q{list(q.shape)} kv{list(k.shape)} "
+            f"{kw}: max|d|={err:.3g} (atol {FLASH_ATOL[dtype]})")
+
+    def check_ssd(name, x, dt, a_log, bm, cm, chunk):
+        """y within SSD_ATOL (+ one bf16 ulp when y is bf16), state within
+        SSD_ATOL, against the plain version."""
+        y, st = ssd_kernel.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk)
+        torch.cuda.synchronize()
+        ry, rst = ssd_scan_ref(x, dt, a_log, bm, cm, chunk)
+        rtol = BF16_ULP if x.dtype == torch.bfloat16 else 0.0
+        dy = (y.float() - ry.float()).abs()
+        ok_y = bool((dy <= SSD_ATOL + rtol * ry.float().abs()).all())
+        err_y, err_st = float(dy.max()), float((st - rst).abs().max())
+        if not (ok_y and err_st <= SSD_ATOL):
+            raise AssertionError(f"ssd_scan {name}: max|dy|={err_y:.3g}, "
+                                 f"max|dstate|={err_st:.3g} (atol {SSD_ATOL}, rtol {rtol})")
+        dtype = str(x.dtype).replace("torch.", "")
+        ssd_checks.append(dict(case=name, dtype=dtype, shape=list(x.shape), g=bm.shape[2],
+                               n=bm.shape[3], chunk=chunk, max_abs_err_y=err_y,
+                               max_abs_err_state=err_st, atol=SSD_ATOL, rtol_y=rtol))
+        log(f"kernel check ssd_scan {name} {dtype} x{list(x.shape)} G={bm.shape[2]} "
+            f"N={bm.shape[3]} chunk={chunk}: max|dy|={err_y:.3g} max|dstate|={err_st:.3g}")
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    # the shapes of tests/test_kernels.py, then grouped-query attention
+    for bh, sq, skv, hd, causal, window, q_offset in [
+            (2, 128, 128, 64, True, 0, 0), (3, 200, 200, 64, True, 0, 0),
+            (2, 256, 256, 128, True, 64, 0), (1, 1, 300, 64, True, 0, 299),
+            (2, 128, 128, 80, False, 0, 0), (1, 96, 160, 64, True, 0, 64)]:
+        check_flash("test_kernels", randn(bh, sq, hd), randn(bh, skv, hd),
+                    randn(bh, skv, hd), causal, window, q_offset)
+    check_flash("test_kernels", *(randn(2, 128, 64, dtype=torch.bfloat16) for _ in range(3)))
+    check_flash("gqa", randn(8, 77, 64), randn(4, 77, 64), randn(4, 77, 64), True, 16)
+    for b, s_len, h, p, g, n, chunk in [(2, 256, 4, 64, 1, 128, 64), (1, 512, 8, 64, 2, 64, 128),
+                                        (2, 128, 2, 32, 1, 16, 32)]:
+        check_ssd("test_kernels", randn(b, s_len, h, p),
+                  0.1 + 0.5 * torch.rand((b, s_len, h), generator=gen, device=dev),
+                  randn(h, scale=0.5), randn(b, s_len, g, n, scale=0.3),
+                  randn(b, s_len, g, n, scale=0.3), chunk)
+
+    # the pool's model; its prefill gives the kernels their main-path inputs
+    t0 = time.perf_counter()
+    pool_cfg = pool_config()
+    own_params = M.init(pool_cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    log(f"pool model: {pool_cfg.name} {pool_cfg.n_layers} layers d_model={pool_cfg.d_model} "
+        f"{pool_cfg.dtype}, {pool_cfg.param_count() / 1e9:.3f} B params, initialised from a "
+        f"seeded generator on the card in {time.perf_counter() - t0:.1f} s")
+    last = pool_cfg.n_layers - 1
+    capture_tokens = torch.randint(0, pool_cfg.vocab_size, (1, CAPTURE_LEN), generator=gen,
+                                   device=dev)
+    # why the pool rescales wq, wk, wv: at the init's own heads-axis fan-in
+    # (ROADMAP.md queue 3) the logits are large, and kernel and plain
+    # version, both float32 logits, are measured against float64 here
+    conditioning = []
+    own = capture_prefill(pool_cfg, own_params, capture_tokens, {0, last})
+    for layer in (0, last):
+        (q, k, v), kw = own["flash"][layer]
+        g = q.shape[0] // k.shape[0]
+        logit_max = max(float((q[h].float() @ k[h // g].float().T).abs().max())
+                        for h in range(q.shape[0])) / q.shape[2] ** 0.5
+        exact = attention_ref(q.double(), k.double(), v.double(), **kw)
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+            got = flash_kernel.flash_attention_cuda(qd, kd, vd, **kw).double()
+            plain = attention_ref(qd, kd, vd, **kw).double()
+            name = str(dtype).replace("torch.", "")
+            row = dict(layer=layer, dtype=name, max_abs_logit=logit_max,
+                       max_abs_out=float(exact.abs().max()),
+                       kernel_vs_plain=float((got - plain).abs().max()),
+                       kernel_vs_float64=float((got - exact).abs().max()),
+                       plain_vs_float64=float((plain - exact).abs().max()),
+                       atol=FLASH_ATOL[name])
+            conditioning.append(row)
+            log(f"init fan-in: layer {layer} {name}, max|logit| {logit_max:.1f}, max|out| "
+                f"{row['max_abs_out']:.3g}: kernel vs plain {row['kernel_vs_plain']:.3g}, "
+                f"kernel vs float64 {row['kernel_vs_float64']:.3g}, plain vs float64 "
+                f"{row['plain_vs_float64']:.3g} (the checks' atol {FLASH_ATOL[name]}; "
+                f"measured, not held to it)")
+    del own, exact
+    pool_params = M.attention_at_d_model_fan_in(pool_cfg, own_params)
+    del own_params
+    log("pool model: wq, wk, wv rescaled to a d_model fan-in (unit-scale logits)")
+    captured = capture_prefill(pool_cfg, pool_params, capture_tokens, {0, last})
+    for layer in (0, last):
+        (q, k, v), kw = captured["flash"][layer]
+        check_flash(f"{pool_cfg.name} layer {layer}", q, k, v, **kw)
+        check_flash(f"{pool_cfg.name} layer {layer} in float32", q.float(), k.float(),
+                    v.float(), **kw)
+        args, _ = captured["ssd"][layer]
+        check_ssd(f"{pool_cfg.name} layer {layer}", *args)
+        check_ssd(f"{pool_cfg.name} layer {layer} in float32",
+                  *(a.float() if isinstance(a, torch.Tensor) else a for a in args))
+
+    # the whole model, reduced, with the kernels against the plain versions
+    small = reduced(pool_cfg, n_kv_heads=2, sliding_window=16)
+    small_params = M.attention_at_d_model_fan_in(small, M.init(small, gen, device=dev))
+    toks = torch.randint(0, small.vocab_size, (2, 40), generator=gen, device=dev)
+
+    def run_small():
+        logits, cache = M.prefill(small, small_params, {"tokens": toks[:, :36]},
+                                  max_cache_len=48)
+        outs = [logits]
+        for pos in range(36, 40):
+            logits, cache = M.decode_step(small, small_params, cache,
+                                          {"token": toks[:, pos:pos + 1], "pos": pos})
+            outs.append(logits)
+        return outs + [cache[key] for key in sorted(cache)]
+
+    with_kernels = run_small()
+    with plain_kernels():
+        with_plain = run_small()
+    model_err = max(float((a - b).abs().max()) for a, b in zip(with_kernels, with_plain))
+    for a, b in zip(with_kernels, with_plain):
+        torch.testing.assert_close(a, b, atol=SSD_ATOL, rtol=SSD_ATOL)
+    log(f"model check {small.name} (kv-heads 2, window 16, float32): prefill + 4 decode "
+        f"steps with the kernels equal the plain versions, max|d|={model_err:.3g} "
+        f"(atol = rtol = {SSD_ATOL})")
+
+    # ------------------------------------------------------ 4. the serving path
     t0 = time.perf_counter()
     bench = make_toolbench_like(seed=0)
     enc = BagEncoder(bench.vocab, device=dev)
@@ -351,9 +628,10 @@ def main() -> int:
     fused.close()
     dense.close()
     main_launches = topk_kernel.launches
-    log(f"main path: {time.perf_counter() - t_serve:.1f} s, topk_sim launches {main_launches}")
+    log(f"serving path: {time.perf_counter() - t_serve:.1f} s, topk_sim launches "
+        f"{main_launches}")
     if main_launches == 0:
-        raise AssertionError("the main path never launched the topk_sim kernel")
+        raise AssertionError("the serving path never launched the topk_sim kernel")
 
     # where a batch's time goes on the card: device time per batch, by
     # kernel, and the host-clock time of the same 20 batches (the profiler
@@ -393,7 +671,122 @@ def main() -> int:
             + json.dumps({k[:60]: round(v, 4) for k, v in per_kernel.items()}))
     fused.close()
 
-    # ----------------------------------------------------------------- 5. times
+    # ------------------------------------------------------------------ 5. pool
+    dense_native = router(db_native, "dense", None)
+    pool_router = router(db_native, "fused", None)
+    routed = []  # batch sizes of the pool's route_batch calls
+    route_batch = pool_router.route_batch
+
+    def counted_route(queries, *args, **kwargs):
+        routed.append(len(queries))
+        return route_batch(queries, *args, **kwargs)
+
+    pool_router.route_batch = counted_route
+    max_len = POOL_PROMPT_LENS[1] + 2 * POOL_NEW_TOKENS
+    batcher = ContinuousBatcher(pool_cfg, pool_params, n_slots=POOL_SLOTS, max_len=max_len,
+                                router=pool_router, device=dev)
+    prefill_ms, decode_ms, tick_ms = [], [], []
+    prefill, decode = batcher._prefill, batcher._decode
+
+    def timed(fn, into):
+        def wrapper(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, cache = fn(*args)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t) * 1e3)
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError("pool: non-finite logits")
+            return logits, cache
+        return wrapper
+
+    batcher._prefill, batcher._decode = timed(prefill, prefill_ms), timed(decode, decode_ms)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(POOL_PROMPT_LENS[0], POOL_PROMPT_LENS[1] + 1, POOL_REQUESTS)
+    requests = [Request(request_id=i, prompt=rng.integers(0, pool_cfg.vocab_size, int(n)),
+                        max_new_tokens=POOL_NEW_TOKENS,
+                        query_tokens=bench.query_tokens[i % bench.n_queries])
+                for i, n in enumerate(lens)]
+    for req in requests:
+        batcher.submit(req)
+    torch.cuda.synchronize()
+    for mod in kernel_modules.values():
+        mod.launches = 0  # the pool path starts: count only its launches
+    t_pool = time.perf_counter()
+    while batcher.queue or any(slot is not None for slot in batcher.slots):
+        t = time.perf_counter()
+        batcher.tick()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t_pool
+    pool_launches = {name: mod.launches for name, mod in kernel_modules.items()}
+    done = sorted(batcher.completed, key=lambda r: r.request_id)
+    if [r.request_id for r in done] != list(range(POOL_REQUESTS)):
+        raise AssertionError(f"pool: {len(done)} of {POOL_REQUESTS} requests completed")
+    for r in done:
+        if len(r.generated) != POOL_NEW_TOKENS or not all(
+                0 <= t < pool_cfg.vocab_size for t in r.generated):
+            raise AssertionError(f"pool: request {r.request_id} generated {r.generated}")
+    expect = {"flash_attention": POOL_REQUESTS * pool_cfg.n_layers,
+              "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers, "topk_sim": 2 * len(routed)}
+    if pool_launches != expect or len(prefill_ms) != POOL_REQUESTS:
+        raise AssertionError(f"pool: launches {pool_launches}, expected {expect} "
+                             f"({len(prefill_ms)} prefills, {len(routed)} routed batches)")
+    n_rule = agree([r.route_result for r in done],
+                   dense_native.route_batch([r.query_tokens for r in done]), "pool routing")
+    generated = sum(len(r.generated) for r in done)
+    pool_stats = dict(
+        model=pool_cfg.name, dtype=pool_cfg.dtype, layers=pool_cfg.n_layers,
+        requests=POOL_REQUESTS, slots=POOL_SLOTS, max_len=max_len,
+        prompt_lens=[int(n) for n in lens], new_tokens=POOL_NEW_TOKENS, ticks=len(tick_ms),
+        seconds=pool_s, generated_tokens=generated, generated_tokens_per_s=generated / pool_s,
+        prefill_ms=list(prefill_ms), decode_ms_p50=float(np.percentile(decode_ms, 50)),
+        decode_ms_p99=float(np.percentile(decode_ms, 99)), decode_ms=list(decode_ms),
+        routed_batches=routed, launches=pool_launches, routing_near_tie_rows=n_rule,
+        prefill_tokens_per_s=float(lens.sum() / (sum(prefill_ms) / 1e3)))
+    log(f"pool: {POOL_REQUESTS} requests drained in {len(tick_ms)} ticks, {pool_s:.2f} s; "
+        f"{generated} tokens, {generated / pool_s:.1f} generated tokens/s; launches "
+        + json.dumps(pool_launches) + f" ({len(routed)} routed batches {routed}); tools equal "
+        f"to the dense backend's (rows reordered inside near-ties: {n_rule})")
+    log("pool prefill ms per request (prompt tokens): " + ", ".join(
+        f"{ms:.1f} ({int(n)})" for ms, n in zip(prefill_ms, lens)))
+    log("pool decode ms per tick: " + ", ".join(f"{ms:.1f}" for ms in decode_ms))
+    log(f"pool decode step p50 {pool_stats['decode_ms_p50']:.2f} ms, p99 "
+        f"{pool_stats['decode_ms_p99']:.2f} ms over {len(decode_ms)} ticks; prefill "
+        f"{pool_stats['prefill_tokens_per_s']:.0f} prompt tokens/s")
+
+    # where the pool's time goes: a second drain of 4 requests under the
+    # profiler; busy = device time of all kernels and copies, against the
+    # host clock of the same ticks (the profiler adds host overhead)
+    for i, n in enumerate(lens[:POOL_SLOTS]):
+        batcher.submit(Request(request_id=POOL_REQUESTS + i,
+                               prompt=rng.integers(0, pool_cfg.vocab_size, int(n)),
+                               max_new_tokens=POOL_NEW_TOKENS))
+    torch.cuda.synchronize()
+    wall = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        while batcher.queue or any(slot is not None for slot in batcher.slots):
+            t = time.perf_counter()
+            batcher.tick()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t) * 1e3)
+    per_kernel = sorted(
+        ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        key=lambda kv: -kv[1])
+    busy = sum(ms for _, ms in per_kernel)
+    pool_stats["profiled"] = dict(
+        ticks=len(wall), wall_ms=float(sum(wall)), busy_ms=busy,
+        idle_share=1 - busy / float(sum(wall)),
+        top_kernels_ms={k[:80]: v for k, v in per_kernel[:8]})
+    log(f"profile pool: {len(wall)} ticks (4 prefills + decode), host clock "
+        f"{sum(wall):.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{pool_stats['profiled']['idle_share']:.4f}; top kernels ms "
+        + json.dumps({k[:60]: round(v, 2) for k, v in per_kernel[:8]}))
+    pool_router.close()
+    dense_native.close()
+
+    # ----------------------------------------------------------------- 6. times
     table_big = torch.from_numpy(big).to(dev)
     table_native = torch.from_numpy(native).to(dev)
     shapes = []
@@ -411,6 +804,30 @@ def main() -> int:
             f"{plain:.4f} ms, torch.topk(q@t.T) {lib:.4f} ms, bound {bound:.4f} ms "
             f"({bound_by}) on {card}")
     head = shapes[1]  # the bare path's full batch: Q=64 over 100,000 tools
+
+    # the new kernels at the full-width shapes of layer 0's prefill (bf16)
+    (q, k, v), kw = captured["flash"][0]
+    g = q.shape[0] // k.shape[0]
+    q4 = q.view(1, q.shape[0], q.shape[1], q.shape[2])
+    k4, v4 = (t.repeat_interleave(g, dim=0).view(q4.shape) for t in (k, v))
+    mask = attention_mask(q.shape[1], k.shape[1], True, kw["window"], 0, dev)
+    f_ms = cuda_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, **kw))
+    f_plain = cuda_ms(lambda: attention_ref(q, k, v, **kw))
+    f_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask))
+    f_bound, f_by = flash_bound(q, k, v, True, kw["window"], 0)
+    log(f"time flash_attention q{list(q.shape)} kv{list(k.shape)} {q.dtype} window "
+        f"{kw['window']}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA (same mask, kv "
+        f"repeated) {f_lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}) on {card}")
+    ssd_args, _ = captured["ssd"][0]
+    s_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_cuda(*ssd_args))
+    s_plain = cuda_ms(lambda: ssd_scan_ref(*ssd_args))
+    s_bound, s_by = ssd_bound(*ssd_args[:5])
+    x0 = ssd_args[0]
+    log(f"time ssd_scan x{list(x0.shape)} {x0.dtype} N={ssd_args[3].shape[-1]} chunk "
+        f"{ssd_args[5]}: kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, no library call, bound "
+        f"{s_bound:.4f} ms ({s_by}) on {card}")
+
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=main_launches,
@@ -418,10 +835,33 @@ def main() -> int:
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         shape=head["shape"], shapes=shapes, checks=checks,
         index_agreement="exact except reordering inside near-ties (rows counted in checks)",
+        launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"]},
+    ), dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:112",
+        launches=pool_launches["flash_attention"],
+        max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
+        bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
+        shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
+                   window=kw["window"], dtype=str(q.dtype)),
+        library="scaled_dot_product_attention with the same boolean mask, kv repeated",
+        checks=flash_checks,
+    ), dict(
+        name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:102",
+        launches=pool_launches["ssd_scan"],
+        max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
+        ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
+        shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
+                   chunk=ssd_args[5], dtype=str(x0.dtype)),
+        checks=ssd_checks,
     )]
     summary = dict(card=card, seconds=time.perf_counter() - t_start, runs=runs,
                    profiled=[{k: v for k, v in p.items() if k != "per_kernel_ms"}
-                             for p in profiled])
+                             for p in profiled],
+                   pool={k: v for k, v in pool_stats.items() if k != "decode_ms"},
+                   model_check_max_abs_err=model_err, init_fan_in=conditioning)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -25,12 +25,17 @@ Device = Union[str, torch.device, None]
 def params_from_jax(tree: Any, device: Device = None) -> Any:
     """A (nested) dict of arrays, or one array, as torch tensors on `device`.
 
-    Values are copied with their dtype and shape unchanged.
+    Values are copied with their dtype and shape unchanged. bfloat16 arrays
+    (numpy's `ml_dtypes.bfloat16`, which `torch.from_numpy` does not take)
+    cross as their 16-bit patterns and are viewed as `torch.bfloat16`.
     """
     device = resolve_device(device)
     if isinstance(tree, Mapping):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+    arr = np.array(tree, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
 
 
 def stages_from_jax(

@@ -11,6 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.topk_sim import kernel as topk_kernel
 from repro_torch.kernels.topk_sim.ops import topk_sim
 from repro_torch.kernels.topk_sim.ref import topk_sim_ref
@@ -22,7 +28,7 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     return torch.device("cuda")
 
 
@@ -78,3 +84,92 @@ def test_topk_sim_kernel_rejects_bad_inputs(cuda_device):
             bad()
     empty_s, empty_i = topk_kernel.topk_sim_cuda(q[:0], t, 2)
     assert empty_s.shape == (0, 2) and empty_i.shape == (0, 2)
+
+
+# ------------------------------------------------------------ flash attention
+FLASH_SHAPES = [  # bh, bhkv, sq, skv, hd, causal, window, q_offset
+    (2, 2, 128, 128, 64, True, 0, 0),
+    (3, 3, 200, 200, 64, True, 0, 0),
+    (2, 2, 256, 256, 128, True, 64, 0),
+    (1, 1, 1, 300, 64, True, 0, 299),
+    (2, 2, 128, 128, 80, False, 0, 0),
+    (1, 1, 96, 160, 64, True, 0, 64),
+    (8, 4, 77, 77, 64, True, 16, 0),  # grouped-query attention, ragged tiles
+    (25, 5, 2048, 2048, 64, True, 1024, 0),  # hymba-1.5b prefill, one layer
+]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("bh,bhkv,sq,skv,hd,causal,window,q_offset", FLASH_SHAPES)
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, atol, bh, bhkv, sq, skv, hd,
+                                              causal, window, q_offset):
+    rng = np.random.default_rng(bh * 7919 + sq + hd)
+    q, k, v = (torch.from_numpy(rng.normal(size=(n, s, hd)).astype(np.float32))
+               .to(cuda_device, dtype) for n, s in ((bh, sq), (bhkv, skv), (bhkv, skv)))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = flash_kernel.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=atol, rtol=0)
+
+
+# ----------------------------------------------------------------- ssd scan
+SSD_SHAPES = [  # b, s, h, p, g, n, chunk
+    (2, 256, 4, 64, 1, 128, 64),
+    (1, 512, 8, 64, 2, 64, 128),
+    (2, 128, 2, 32, 1, 16, 32),
+    (1, 96, 3, 80, 3, 8, 32),  # ragged last tile, P not a multiple of 16
+    (1, 2048, 50, 64, 1, 16, 256),  # hymba-1.5b prefill, one layer
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n, chunk):
+    """y within 1e-3 (plus one bfloat16 ulp, 2**-7 relative, when y is
+    bfloat16: both versions round the same float32 value once); the final
+    state (float32) within 1e-3."""
+    rng = np.random.default_rng(s + h + n)
+    x = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).to(cuda_device, dtype)
+    dt = torch.from_numpy((0.1 + 0.5 * rng.random((b, s, h))).astype(np.float32)).to(cuda_device)
+    a_log = torch.from_numpy((rng.normal(size=(h,)) * 0.5).astype(np.float32)).to(cuda_device)
+    bm, cm = (torch.from_numpy((rng.normal(size=(b, s, g, n)) * 0.3).astype(np.float32))
+              .to(cuda_device, dtype) for _ in range(2))
+    before = ssd_kernel.launches
+    y, st = ssd_scan(x, dt, a_log, bm, cm, chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    ry, rst = ssd_scan_ref(x, dt, a_log, bm, cm, chunk)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    rtol = 2**-7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(y.float(), ry.float(), atol=1e-3, rtol=rtol)
+    torch.testing.assert_close(st, rst, atol=1e-3, rtol=0)
+
+
+def test_new_kernels_reject_bad_inputs(cuda_device):
+    q = torch.zeros((4, 8, 64), device=cuda_device)
+    for bad in (
+        lambda: flash_kernel.flash_attention_cuda(q.double(), q.double(), q.double()),
+        lambda: flash_kernel.flash_attention_cuda(q, q[:3], q[:3]),  # 4 rows over 3
+        lambda: flash_kernel.flash_attention_cuda(q, q.transpose(1, 2), q),  # shapes
+        lambda: flash_kernel.flash_attention_cuda(torch.zeros((1, 8, 129), device=cuda_device),
+                                                  torch.zeros((1, 8, 129), device=cuda_device),
+                                                  torch.zeros((1, 8, 129), device=cuda_device)),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    x = torch.zeros((1, 64, 2, 8), device=cuda_device)
+    dt = torch.zeros((1, 64, 2), device=cuda_device)
+    a_log = torch.zeros((2,), device=cuda_device)
+    bm = torch.zeros((1, 64, 1, 4), device=cuda_device)
+    for bad in (
+        lambda: ssd_kernel.ssd_scan_cuda(x, dt, a_log, bm, bm, 48),  # 64 % 48
+        lambda: ssd_kernel.ssd_scan_cuda(x, dt, a_log, bm[:, :, :, :0], bm[:, :, :, :0], 16),
+        lambda: ssd_kernel.ssd_scan_cuda(x, dt[:, :, :1], a_log, bm, bm, 16),
+        lambda: ssd_kernel.ssd_scan_cuda(x.cpu(), dt, a_log, bm, bm, 16),
+    ):
+        with pytest.raises(ValueError):
+            bad()

@@ -13,8 +13,12 @@ import torch
 
 import repro_torch
 from repro_torch.embedding.bag_encoder import BagEncoder
+from repro_torch.configs import get_config
 from repro_torch.index import DenseBackend, FusedBackend, ToolIndexManager
+from repro_torch.models import model as M
+from repro_torch.models.config import reduced
 from repro_torch.router.gateway import SemanticRouter
+from repro_torch.router.scheduler import ContinuousBatcher
 from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
@@ -30,7 +34,10 @@ def _port_modules():
 def test_every_port_module_imports_without_jax_or_repro():
     modules = _port_modules()
     assert {"repro_torch.router.gateway", "repro_torch.kernels.topk_sim.kernel",
-            "repro_torch.convert", "repro_torch.data.benchmarks"} <= set(modules)
+            "repro_torch.convert", "repro_torch.data.benchmarks",
+            "repro_torch.models.model", "repro_torch.router.scheduler",
+            "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.ssd_scan.kernel"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -72,6 +79,8 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: DenseBackend(table, 0),
         lambda: FusedBackend(table, 0),
         lambda: BagEncoder(vocab),
+        lambda: M.init(reduced(get_config("hymba-1.5b")), torch.Generator()),
+        lambda: ContinuousBatcher(reduced(get_config("hymba-1.5b")), {}),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
