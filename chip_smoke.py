@@ -12,7 +12,10 @@ package `repro`. Phases, each of which fails the run by raising:
   2. build   — compile the hand-written kernels from `src/repro_torch`, one
                nvcc per source, all started together;
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card, at the main paths' shapes and at edge cases; the flash
+               card, at the main paths' shapes and at edge cases (flash
+               attention on both its kernels: wgmma for bf16, fma for
+               float32 and for bf16 with hd % 8 != 0, each launch checked
+               against the route `flash_route` gives); the flash
                attention and SSD scan kernels also at the inputs that a
                2,048-token prompt gives them in layers 0 and 31 of
                full-width hymba-1.5b, and the whole reduced model with the
@@ -33,12 +36,15 @@ package `repro`. Phases, each of which fails the run by raising:
                at the native 2,413 tools. Every
                request must get 16 tokens in the vocabulary from finite
                logits, its tools must equal the dense backend's, and each
-               prefill must launch flash_attention and ssd_scan once per
-               layer; then profile a second short drain for the device's
-               busy and idle share;
+               prefill must launch flash_attention (on the wgmma route,
+               never the fma one) and ssd_scan once per layer; then
+               profile a second short drain for the device's
+               busy and idle share, and one 2,048-token prefill alone;
   6. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
-               shapes; per-phase p50 and per-batch p50/p99 of the gateway.
+               shapes (flash attention's two kernels on the same bf16
+               inputs, in turns); per-phase p50 and per-batch p50/p99 of
+               the gateway.
 
 The second-to-last line is the `kernels` JSON object, the last line
 `{"ok": true, "device": {...}}`. TF32 is switched off for matmuls and
@@ -368,22 +374,29 @@ def main() -> int:
 
     flash_checks, ssd_checks = [], []
 
-    def check_flash(name, q, k, v, causal=True, window=0, q_offset=0):
-        """Kernel against plain version within FLASH_ATOL of the dtype."""
+    def check_flash(name, q, k, v, causal=True, window=0, q_offset=0, route=None):
+        """Kernel against plain version within FLASH_ATOL of the dtype; the
+        launch must take the route `flash_route` gives (or `route`, forced)."""
         kw = dict(causal=causal, window=window, q_offset=q_offset)
-        got = flash_kernel.flash_attention_cuda(q, k, v, **kw)
+        want = route or flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v)
+        before = dict(flash_kernel.launches_by_route)
+        got = flash_kernel.flash_attention_cuda(q, k, v, route=route, **kw)
         torch.cuda.synchronize()
+        if flash_kernel.launches_by_route != {**before, want: before[want] + 1}:
+            raise AssertionError(f"flash_attention {name}: not launched on the {want} route")
         ref = attention_ref(q, k, v, **kw)
         dtype = str(q.dtype).replace("torch.", "")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {name}: non-finite output ({want})")
         err = float((got.float() - ref.float()).abs().max())
         if not err <= FLASH_ATOL[dtype]:
             raise AssertionError(f"flash_attention {name}: max|d|={err:.3g} > "
-                                 f"{FLASH_ATOL[dtype]} ({dtype})")
-        flash_checks.append(dict(case=name, dtype=dtype, bh=q.shape[0], bhkv=k.shape[0],
-                                 sq=q.shape[1], skv=k.shape[1], hd=q.shape[2], **kw,
-                                 max_abs_err=err, atol=FLASH_ATOL[dtype]))
-        log(f"kernel check flash_attention {name} {dtype} q{list(q.shape)} kv{list(k.shape)} "
-            f"{kw}: max|d|={err:.3g} (atol {FLASH_ATOL[dtype]})")
+                                 f"{FLASH_ATOL[dtype]} ({dtype}, {want})")
+        flash_checks.append(dict(case=name, dtype=dtype, route=want, bh=q.shape[0],
+                                 bhkv=k.shape[0], sq=q.shape[1], skv=k.shape[1], hd=q.shape[2],
+                                 **kw, max_abs_err=err, atol=FLASH_ATOL[dtype]))
+        log(f"kernel check flash_attention {name} {dtype} {want} q{list(q.shape)} "
+            f"kv{list(k.shape)} {kw}: max|d|={err:.3g} (atol {FLASH_ATOL[dtype]})")
 
     def check_ssd(name, x, dt, a_log, bm, cm, chunk):
         """y within SSD_ATOL (+ one bf16 ulp when y is bf16), state within
@@ -408,15 +421,24 @@ def main() -> int:
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    # the shapes of tests/test_kernels.py, then grouped-query attention
-    for bh, sq, skv, hd, causal, window, q_offset in [
-            (2, 128, 128, 64, True, 0, 0), (3, 200, 200, 64, True, 0, 0),
-            (2, 256, 256, 128, True, 64, 0), (1, 1, 300, 64, True, 0, 299),
-            (2, 128, 128, 80, False, 0, 0), (1, 96, 160, 64, True, 0, 64)]:
-        check_flash("test_kernels", randn(bh, sq, hd), randn(bh, skv, hd),
-                    randn(bh, skv, hd), causal, window, q_offset)
-    check_flash("test_kernels", *(randn(2, 128, 64, dtype=torch.bfloat16) for _ in range(3)))
-    check_flash("gqa", randn(8, 77, 64), randn(4, 77, 64), randn(4, 77, 64), True, 16)
+    # the shapes of tests/test_kernels.py, then grouped-query attention and
+    # ragged edges, in float32 (the fma route) and bf16 (the wgmma route)
+    for case, bh, bhkv, sq, skv, hd, causal, window, q_offset in [
+            ("test_kernels", 2, 2, 128, 128, 64, True, 0, 0),
+            ("test_kernels", 3, 3, 200, 200, 64, True, 0, 0),
+            ("test_kernels", 2, 2, 256, 256, 128, True, 64, 0),
+            ("test_kernels", 1, 1, 1, 300, 64, True, 0, 299),
+            ("test_kernels", 2, 2, 128, 128, 80, False, 0, 0),
+            ("test_kernels", 1, 1, 96, 160, 64, True, 0, 64),
+            ("gqa", 8, 4, 77, 77, 64, True, 16, 0),
+            ("ragged", 2, 2, 77, 200, 64, False, 0, 0),
+            ("ragged", 3, 1, 130, 260, 128, True, 70, 130),
+            ("ragged", 2, 2, 300, 300, 80, True, 100, 0)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_flash(case, randn(bh, sq, hd, dtype=dtype), randn(bhkv, skv, hd, dtype=dtype),
+                        randn(bhkv, skv, hd, dtype=dtype), causal, window, q_offset)
+    # bf16 the wgmma kernel cannot take (hd % 8 != 0) goes to the fma kernel
+    check_flash("hd 36", *(randn(4, 150, 36, dtype=torch.bfloat16) for _ in range(3)), True, 64)
     for b, s_len, h, p, g, n, chunk in [(2, 256, 4, 64, 1, 128, 64), (1, 512, 8, 64, 2, 64, 128),
                                         (2, 128, 2, 32, 1, 16, 32)]:
         check_ssd("test_kernels", randn(b, s_len, h, p),
@@ -471,6 +493,8 @@ def main() -> int:
     for layer in (0, last):
         (q, k, v), kw = captured["flash"][layer]
         check_flash(f"{pool_cfg.name} layer {layer}", q, k, v, **kw)
+        check_flash(f"{pool_cfg.name} layer {layer} on the fma kernel", q, k, v, **kw,
+                    route="fma")
         check_flash(f"{pool_cfg.name} layer {layer} in float32", q.float(), k.float(),
                     v.float(), **kw)
         args, _ = captured["ssd"][layer]
@@ -712,6 +736,7 @@ def main() -> int:
     torch.cuda.synchronize()
     for mod in kernel_modules.values():
         mod.launches = 0  # the pool path starts: count only its launches
+    flash_kernel.launches_by_route = dict.fromkeys(flash_kernel.ROUTES, 0)
     t_pool = time.perf_counter()
     while batcher.queue or any(slot is not None for slot in batcher.slots):
         t = time.perf_counter()
@@ -720,6 +745,7 @@ def main() -> int:
     torch.cuda.synchronize()
     pool_s = time.perf_counter() - t_pool
     pool_launches = {name: mod.launches for name, mod in kernel_modules.items()}
+    pool_flash_routes = dict(flash_kernel.launches_by_route)
     done = sorted(batcher.completed, key=lambda r: r.request_id)
     if [r.request_id for r in done] != list(range(POOL_REQUESTS)):
         raise AssertionError(f"pool: {len(done)} of {POOL_REQUESTS} requests completed")
@@ -729,8 +755,11 @@ def main() -> int:
             raise AssertionError(f"pool: request {r.request_id} generated {r.generated}")
     expect = {"flash_attention": POOL_REQUESTS * pool_cfg.n_layers,
               "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers, "topk_sim": 2 * len(routed)}
-    if pool_launches != expect or len(prefill_ms) != POOL_REQUESTS:
-        raise AssertionError(f"pool: launches {pool_launches}, expected {expect} "
+    expect_routes = {"wgmma": POOL_REQUESTS * pool_cfg.n_layers, "fma": 0}
+    if (pool_launches != expect or pool_flash_routes != expect_routes
+            or len(prefill_ms) != POOL_REQUESTS):
+        raise AssertionError(f"pool: launches {pool_launches}, flash by route "
+                             f"{pool_flash_routes}, expected {expect} and {expect_routes} "
                              f"({len(prefill_ms)} prefills, {len(routed)} routed batches)")
     n_rule = agree([r.route_result for r in done],
                    dense_native.route_batch([r.query_tokens for r in done]), "pool routing")
@@ -742,11 +771,13 @@ def main() -> int:
         seconds=pool_s, generated_tokens=generated, generated_tokens_per_s=generated / pool_s,
         prefill_ms=list(prefill_ms), decode_ms_p50=float(np.percentile(decode_ms, 50)),
         decode_ms_p99=float(np.percentile(decode_ms, 99)), decode_ms=list(decode_ms),
-        routed_batches=routed, launches=pool_launches, routing_near_tie_rows=n_rule,
+        routed_batches=routed, launches=pool_launches,
+        flash_launches_by_route=pool_flash_routes, routing_near_tie_rows=n_rule,
         prefill_tokens_per_s=float(lens.sum() / (sum(prefill_ms) / 1e3)))
     log(f"pool: {POOL_REQUESTS} requests drained in {len(tick_ms)} ticks, {pool_s:.2f} s; "
         f"{generated} tokens, {generated / pool_s:.1f} generated tokens/s; launches "
-        + json.dumps(pool_launches) + f" ({len(routed)} routed batches {routed}); tools equal "
+        + json.dumps(pool_launches) + " (flash by route " + json.dumps(pool_flash_routes)
+        + f"; {len(routed)} routed batches {routed}); tools equal "
         f"to the dense backend's (rows reordered inside near-ties: {n_rule})")
     log("pool prefill ms per request (prompt tokens): " + ", ".join(
         f"{ms:.1f} ({int(n)})" for ms, n in zip(prefill_ms, lens)))
@@ -786,6 +817,34 @@ def main() -> int:
     pool_router.close()
     dense_native.close()
 
+    # how one 2,048-token prefill splits between host and card: three
+    # prefills on the host clock, then one under the profiler (device time
+    # by kernel; the profiler adds host overhead to its own host clock)
+    alone_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        M.prefill(pool_cfg, pool_params, {"tokens": capture_tokens})
+        torch.cuda.synchronize()
+        alone_ms.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        M.prefill(pool_cfg, pool_params, {"tokens": capture_tokens})
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = {e.key: e.self_device_time_total / 1e3 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+    busy = sum(by_kernel.values())
+    own = {name: sum(ms for key, ms in by_kernel.items() if name in key)
+           for name in ("flash_attention_wgmma", "flash_attention_fwd", "ssd_scan_fwd")}
+    pool_stats["prefill_alone"] = dict(
+        tokens=CAPTURE_LEN, host_ms=alone_ms, profiled_host_ms=profiled_ms, busy_ms=busy,
+        idle_share=1 - busy / profiled_ms, kernel_ms=own)
+    log(f"prefill alone, {CAPTURE_LEN} tokens: host clock " + ", ".join(
+        f"{ms:.1f}" for ms in alone_ms) + f" ms; under the profiler {profiled_ms:.1f} ms, device "
+        f"busy {busy:.2f} ms (idle share {1 - busy / profiled_ms:.4f}); device ms by kernel "
+        + json.dumps({k: round(v, 3) for k, v in own.items()}))
+
     # ----------------------------------------------------------------- 6. times
     table_big = torch.from_numpy(big).to(dev)
     table_native = torch.from_numpy(native).to(dev)
@@ -811,14 +870,23 @@ def main() -> int:
     q4 = q.view(1, q.shape[0], q.shape[1], q.shape[2])
     k4, v4 = (t.repeat_interleave(g, dim=0).view(q4.shape) for t in (k, v))
     mask = attention_mask(q.shape[1], k.shape[1], True, kw["window"], 0, dev)
-    f_ms = cuda_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, **kw))
+    # both kernels on the same bf16 inputs, in turns (wgmma, fma, fma, wgmma)
+    by_route = {r: [] for r in ("wgmma", "fma", "fma", "wgmma")}
+    for r in ("wgmma", "fma", "fma", "wgmma"):
+        by_route[r].append(cuda_ms(
+            lambda r=r: flash_kernel.flash_attention_cuda(q, k, v, route=r, **kw), iters=100))
+    f_ms_by_route = {r: min(ts) for r, ts in by_route.items()}
+    f_ms = f_ms_by_route[flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v)]
     f_plain = cuda_ms(lambda: attention_ref(q, k, v, **kw))
     f_lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask))
+        q4, k4, v4, attn_mask=mask), iters=100)
     f_bound, f_by = flash_bound(q, k, v, True, kw["window"], 0)
     log(f"time flash_attention q{list(q.shape)} kv{list(k.shape)} {q.dtype} window "
-        f"{kw['window']}: kernel {f_ms:.4f} ms, plain {f_plain:.4f} ms, SDPA (same mask, kv "
-        f"repeated) {f_lib:.4f} ms, bound {f_bound:.4f} ms ({f_by}) on {card}")
+        f"{kw['window']}: wgmma kernel {f_ms_by_route['wgmma']:.4f} ms (runs "
+        + ", ".join(f"{t:.4f}" for t in by_route["wgmma"]) + f"), fma kernel "
+        f"{f_ms_by_route['fma']:.4f} ms (runs " + ", ".join(f"{t:.4f}" for t in by_route["fma"])
+        + f"), plain {f_plain:.4f} ms, SDPA (same mask, kv repeated) {f_lib:.4f} ms, bound "
+        f"{f_bound:.4f} ms ({f_by}) on {card}")
     ssd_args, _ = captured["ssd"][0]
     s_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_cuda(*ssd_args))
     s_plain = cuda_ms(lambda: ssd_scan_ref(*ssd_args))
@@ -846,7 +914,7 @@ def main() -> int:
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
                    window=kw["window"], dtype=str(q.dtype)),
         library="scaled_dot_product_attention with the same boolean mask, kv repeated",
-        checks=flash_checks,
+        ms_by_route=f_ms_by_route, launches_by_route=pool_flash_routes, checks=flash_checks,
     ), dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:102",

@@ -96,6 +96,11 @@ FLASH_SHAPES = [  # bh, bhkv, sq, skv, hd, causal, window, q_offset
     (1, 1, 96, 160, 64, True, 0, 64),
     (8, 4, 77, 77, 64, True, 16, 0),  # grouped-query attention, ragged tiles
     (25, 5, 2048, 2048, 64, True, 1024, 0),  # hymba-1.5b prefill, one layer
+    (2, 2, 77, 200, 64, False, 0, 0),  # non-causal, Sq != Skv, neither a multiple of 128
+    (4, 2, 77, 200, 64, True, 0, 123),  # a chunked prefill's last 77 rows over 200 keys
+    (2, 2, 300, 300, 80, True, 100, 0),  # hd 80 (padded to 128) with a window
+    (3, 1, 130, 260, 128, True, 70, 130),  # hd 128, window, two boxes a row
+    (2, 2, 64, 100, 32, True, 0, 36),  # hd under one 64-column box
 ]
 
 
@@ -107,13 +112,42 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, atol, bh, bhkv
     q, k, v = (torch.from_numpy(rng.normal(size=(n, s, hd)).astype(np.float32))
                .to(cuda_device, dtype) for n, s in ((bh, sq), (bhkv, skv), (bhkv, skv)))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    before = flash_kernel.launches
+    route = "wgmma" if dtype == torch.bfloat16 else "fma"  # every hd here is a multiple of 8
+    before, before_route = flash_kernel.launches, flash_kernel.launches_by_route[route]
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_kernel.launches == before + 1
+    assert flash_kernel.launches_by_route[route] == before_route + 1
     assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
                                atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["hd36", "misaligned", "forced"])
+def test_flash_attention_fma_route_takes_bf16(cuda_device, case):
+    """bf16 the tensor-core kernel cannot take (hd % 8 != 0, a base off a
+    16-byte boundary) runs on the FMA kernel, as does bf16 whose caller asks
+    for it; each within bf16's 3e-2 of the plain version."""
+    rng = np.random.default_rng(36)
+    hd = 36 if case == "hd36" else 64
+
+    def make(n, s):
+        x = torch.from_numpy(rng.normal(size=(n * s * hd + 1,)).astype(np.float32))
+        x = x.to(cuda_device, torch.bfloat16)
+        return (x[1:] if case == "misaligned" else x[:-1]).view(n, s, hd)
+
+    q, k, v = make(4, 150), make(2, 150), make(2, 150)
+    kw = dict(causal=True, window=64, q_offset=0)
+    assert flash_kernel.flash_route(q.dtype, hd, q, k, v) == (
+        "wgmma" if case == "forced" else "fma")
+    before = dict(flash_kernel.launches_by_route)
+    got = flash_kernel.flash_attention_cuda(q, k, v, route="fma" if case == "forced" else None,
+                                            **kw)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches_by_route == {**before, "fma": before["fma"] + 1}
+    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
+                               atol=3e-2, rtol=0)
 
 
 # ----------------------------------------------------------------- ssd scan
@@ -158,6 +192,8 @@ def test_new_kernels_reject_bad_inputs(cuda_device):
         lambda: flash_kernel.flash_attention_cuda(torch.zeros((1, 8, 129), device=cuda_device),
                                                   torch.zeros((1, 8, 129), device=cuda_device),
                                                   torch.zeros((1, 8, 129), device=cuda_device)),
+        lambda: flash_kernel.flash_attention_cuda(q, q, q, route="wgmma"),  # float32
+        lambda: flash_kernel.flash_attention_cuda(q, q, q, route="tf32"),  # no such kernel
     ):
         with pytest.raises(ValueError):
             bad()

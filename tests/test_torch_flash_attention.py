@@ -7,8 +7,10 @@ interpret mode, and the port's plain version and public op on CPU tensors
 `tests/test_kernels.py`: float32 atol=2e-5, bfloat16 atol=3e-2. The
 grouped-query case holds the op (k and v with fewer heads than q) against
 the JAX model's `gqa_attention` under `_causal_mask`, which is what
-`attn_block` replaces with it. The CUDA kernel itself is held against the
-plain version on the card in `tests/test_torch_cuda.py`.
+`attn_block` replaces with it. The CUDA kernels themselves are held against
+the plain version on the card in `tests/test_torch_cuda.py`; which of the two
+a CUDA input takes (`kernel.flash_route`) is a pure function of its type,
+head dim and alignment, checked here.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -94,3 +96,26 @@ def test_flash_attention_dispatch_and_input_checks():
     before = cuda_kernel.launches
     flash_attention(q, k, v)
     assert cuda_kernel.launches == before  # the plain version counts no launch
+
+
+def _tensor(shape, dtype, misaligned):
+    """A contiguous tensor whose data starts one element past an aligned base
+    when `misaligned` (2 or 4 bytes: no longer a multiple of 16)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + 1, dtype=dtype)
+    return (flat[1:] if misaligned else flat[:n]).view(shape)
+
+
+@pytest.mark.parametrize("misaligned", [None, "q", "k", "v"])
+@pytest.mark.parametrize("hd", [8, 36, 64, 80, 128, 136])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_route(dtype, hd, misaligned):
+    """bf16 with hd % 8 == 0, hd <= 128 and 16-byte aligned bases takes the
+    tensor-core kernel; float32 (no TF32) and every other bf16 input the FMA
+    kernel."""
+    q, k, v = (_tensor((2, 5, hd), dtype, misaligned == name) for name in "qkv")
+    want = ("wgmma" if dtype == torch.bfloat16 and hd % 8 == 0 and hd <= 128
+            and misaligned is None else "fma")
+    assert cuda_kernel.flash_route(dtype, hd, q, k, v) == want
+    # no key at all: nothing for TMA to describe
+    assert cuda_kernel.flash_route(dtype, hd, q, k[:, :0], v[:, :0]) == "fma"
