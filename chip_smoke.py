@@ -12,10 +12,13 @@ package `repro`. Phases, each of which fails the run by raising:
   2. build   — compile the hand-written kernels from `src/repro_torch`, one
                nvcc per source, all started together;
   3. kernels — hold each kernel against its plain PyTorch version on the
-               card, at the main paths' shapes and at edge cases (flash
-               attention on both its kernels: wgmma for bf16, fma for
-               float32 and for bf16 with hd % 8 != 0, each launch checked
-               against the route `flash_route` gives); the flash
+               card, at the main paths' shapes and at edge cases (topk_sim
+               on both its routes, cluster and split, and flash attention
+               on both its kernels: wgmma for bf16, fma for float32 and for
+               bf16 with hd % 8 != 0, each launch checked against the route
+               `topk_route` or `flash_route` gives; the SSD scan also on
+               strided bf16 slices of one xBC tensor, as ssm_block passes
+               them); the flash
                attention and SSD scan kernels also at the inputs that a
                2,048-token prompt gives them in layers 0 and 31 of
                full-width hymba-1.5b, and the whole reduced model with the
@@ -28,7 +31,7 @@ package `repro`. Phases, each of which fails the run by raising:
                adapter, in batches of 8 and of 64; re-rank at the native
                2,413 tools; a CAS table swap. Results must equal those of
                the dense backend on the card, and the kernel's launch count
-               must rise during this phase;
+               must rise during this phase on both topk_sim routes;
   5. pool    — serve 16 routed requests (prompts of 1,100-2,048 tokens, 16
                new tokens each) through `ContinuousBatcher` over full-width
                hymba-1.5b in bf16 (wq, wk, wv at a d_model fan-in) with 4
@@ -36,15 +39,20 @@ package `repro`. Phases, each of which fails the run by raising:
                at the native 2,413 tools. Every
                request must get 16 tokens in the vocabulary from finite
                logits, its tools must equal the dense backend's, and each
-               prefill must launch flash_attention (on the wgmma route,
-               never the fma one) and ssd_scan once per layer; then
+               prefill must launch flash_attention once per layer (on the
+               wgmma route, never the fma one) and ssd_scan once per layer
+               and phase, and each routed batch topk_sim once (on the
+               cluster route); then
                profile a second short drain for the device's
                busy and idle share, and one 2,048-token prefill alone;
   6. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
-               shapes (flash attention's two kernels on the same bf16
-               inputs, in turns); per-phase p50 and per-batch p50/p99 of
-               the gateway.
+               shapes (topk_sim against torch.topk(q @ t.T) in five
+               alternating rounds of 200 calls, medians; its two routes as
+               the table grows; the host dispatch of one small call
+               against its device time; flash attention's two kernels on
+               the same bf16 inputs, in turns; each SSD scan phase's device
+               time); per-phase p50 and per-batch p50/p99 of the gateway.
 
 The second-to-last line is the `kernels` JSON object, the last line
 `{"ok": true, "device": {...}}`. TF32 is switched off for matmuls and
@@ -68,7 +76,8 @@ from pathlib import Path
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
-NEAR_TIE = 1e-5  # clone tables: adjacent plain-version scores closer than this may swap
+NEAR_TIE = 1e-5  # adjacent plain-version scores closer than this may swap (clone
+# tables; the cluster route's summation order against cuBLAS's)
 SCORE_ATOL = 1e-5
 N_TOOLS = 100_000
 BATCH_SIZES = (8, 64)
@@ -83,6 +92,8 @@ POOL_ARCH = "hymba-1.5b"
 POOL_REQUESTS, POOL_SLOTS, POOL_NEW_TOKENS = 16, 4, 16
 POOL_PROMPT_LENS = (1100, 2048)  # inclusive; all past hymba's 1,024-token window
 CAPTURE_LEN = 2048  # the prompt whose layer inputs the kernels are checked at
+TIME_ROUNDS = 5  # rounds in turns of a small kernel's timing (one sample moves +-20%)
+CROSSOVER_T = (2413, 4096, 6144, 8192, 12288)  # cluster vs split route
 
 
 def log(*parts) -> None:
@@ -132,6 +143,17 @@ def compare_topk(ks, ki, rs, ri, tie: float):
                 f"(plain scores {rs_c[r].tolist()})"
             )
     return err, len(differ)
+
+
+def alternating(fns: dict, rounds: int = None, iters: int = 200) -> dict:
+    """{name: [ms per call, one per round]}: every function timed in each
+    round by `cuda_ms`, the order reversed from one round to the next."""
+    rounds = rounds or TIME_ROUNDS
+    out = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            out[name].append(cuda_ms(fns[name], iters=iters))
+    return out
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -326,51 +348,74 @@ def main() -> int:
     max_err = 0.0
     checks = []
 
-    def check(name, q, t, k, tie=None):
+    def check(name, q, t, k, tie=None, route=None):
         """Kernel against plain version: scores within SCORE_ATOL; indices
         exactly equal, or (clone tables, `tie` given) equal up to
-        reordering inside adjacent plain-version scores closer than `tie`."""
+        reordering inside adjacent plain-version scores closer than `tie`.
+        The launch must take `route` (forced) or the one `topk_route` gives."""
         nonlocal max_err
-        ks, ki = topk_kernel.topk_sim_cuda(q, t, k)
+        want = route or topk_kernel.topk_route(q.shape[0], t.shape[0], q.shape[1], k, t, q)
+        before = dict(topk_kernel.launches_by_route)
+        ks, ki = topk_kernel.topk_sim_cuda(q, t, k, route=route)
         torch.cuda.synchronize()
+        n_launch = 1 if want == "cluster" else 2
+        if topk_kernel.launches_by_route != {**before, want: before[want] + n_launch}:
+            raise AssertionError(f"{name}: topk_sim not launched on the {want} route")
         rs, ri = topk_sim_ref(q, t, k)
+        if tie is None and want == "cluster":
+            # the cluster kernel sums each product over a tree of lanes, the
+            # plain version in cuBLAS's order: they may swap float32 near-ties
+            tie = NEAR_TIE
         if tie is None:
             if not torch.equal(ki, ri):
-                raise AssertionError(f"{name}: indices differ from the plain version")
+                raise AssertionError(f"{name} ({want}): indices differ from the plain version")
             err, n_tie_rows = compare_topk(ks, ki, rs, ri, 0.0)
             rule = "indices exact"
         else:
             err, n_tie_rows = compare_topk(ks, ki, rs, ri, tie)
             rule = f"rows reordered inside near-ties (<{tie:g}): {n_tie_rows}"
         max_err = max(max_err, err)
-        checks.append(dict(case=name, shape=[q.shape[0], t.shape[0], q.shape[1], k],
+        checks.append(dict(case=name, route=want, shape=[q.shape[0], t.shape[0], q.shape[1], k],
                            max_abs_err=err, near_tie_rows=n_tie_rows))
-        log(f"kernel check {name} Q={q.shape[0]} T={t.shape[0]} D={q.shape[1]} k={k}: "
+        log(f"kernel check {name} {want} Q={q.shape[0]} T={t.shape[0]} D={q.shape[1]} k={k}: "
             f"max|ds|={err:.3g}, {rule}")
 
-    for n_q, n_t, d, k in [(1, 2413, 384, 5), (8, 2413, 384, 25), (64, 100_000, 384, 25),
+    # each shape on the route topk_route gives it, then on the other where
+    # the cluster kernel can take it; D = 130 cannot (D % 4 != 0)
+    for n_q, n_t, d, k in [(1, 2413, 384, 5), (8, 2413, 384, 25), (64, 2413, 384, 25),
+                           (33, 2047, 384, 128), (64, 300, 384, 5),
+                           (8, topk_kernel.CLUSTER_MAX_T, 384, 25), (64, 100_000, 384, 25),
                            (128, 100_000, 384, 5), (33, 100_003, 384, 25),
-                           (64, 100_000, 384, 5), (5, 300, 64, 128)]:
-        check("random", unit_rows(n_q, d, gen), unit_rows(n_t, d, gen), k)
-    # one-hot rows tiled so that bitwise ties cross every tile and split
-    # boundary: lowest-index-first is the only right order
+                           (64, 100_000, 384, 5), (5, 300, 64, 128), (8, 2413, 130, 25)]:
+        q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
+        check("random", q, t, k)
+        if d % 4 == 0:
+            chosen = topk_kernel.topk_route(n_q, n_t, d, k, t, q)
+            check("random", q, t, k, route="split" if chosen == "cluster" else "cluster")
+        elif topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "split":
+            raise AssertionError(f"D={d} must take the split route")
+    # one-hot rows tiled so that bitwise ties cross every tile, slice and
+    # split boundary: lowest-index-first is the only right order
     base = torch.zeros((9, 128), device=dev)
     base[torch.arange(9), torch.arange(9)] = 1.0
-    ties = base.repeat(11_111, 1).contiguous()
-    for n_q, k in [(40, 8), (4, 128)]:
-        q = unit_rows(n_q, 128, gen)
-        ks, ki = topk_kernel.topk_sim_cuda(q, ties, k)
-        rs, ri = topk_sim_ref(q, ties, k)
-        if not torch.equal(ki, ri):
-            raise AssertionError("tie order differs from the plain version")
-        best = q[:, :9].argmax(dim=1)
-        if not torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=dev)[None, :]):
-            raise AssertionError("ties not resolved to the lowest index")
-        err = float((ks - rs).abs().max())
-        max_err = max(max_err, err)
-        checks.append(dict(case="ties", shape=[n_q, ties.shape[0], 128, k],
-                           max_abs_err=err, near_tie_rows=0))
-        log(f"kernel check ties Q={n_q} T={ties.shape[0]} k={k}: exact, max|ds|={err:.3g}")
+    for reps in (11_111, topk_kernel.CLUSTER_MAX_T // 9):
+        ties = base.repeat(reps, 1).contiguous()
+        for n_q, k in [(40, 8), (4, 128)]:
+            q = unit_rows(n_q, 128, gen)
+            for route in topk_kernel.ROUTES:
+                ks, ki = topk_kernel.topk_sim_cuda(q, ties, k, route=route)
+                rs, ri = topk_sim_ref(q, ties, k)
+                if not torch.equal(ki, ri):
+                    raise AssertionError(f"tie order differs from the plain version ({route})")
+                best = q[:, :9].argmax(dim=1)
+                if not torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=dev)[None, :]):
+                    raise AssertionError(f"ties not resolved to the lowest index ({route})")
+                err = float((ks - rs).abs().max())
+                max_err = max(max_err, err)
+                checks.append(dict(case="ties", route=route, shape=[n_q, ties.shape[0], 128, k],
+                                   max_abs_err=err, near_tie_rows=0))
+                log(f"kernel check ties {route} Q={n_q} T={ties.shape[0]} k={k}: exact, "
+                    f"max|ds|={err:.3g}")
 
     flash_checks, ssd_checks = [], []
 
@@ -400,9 +445,12 @@ def main() -> int:
 
     def check_ssd(name, x, dt, a_log, bm, cm, chunk):
         """y within SSD_ATOL (+ one bf16 ulp when y is bf16), state within
-        SSD_ATOL, against the plain version."""
+        SSD_ATOL, against the plain version; one launch per phase."""
+        before = ssd_kernel.launches
         y, st = ssd_kernel.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk)
         torch.cuda.synchronize()
+        if ssd_kernel.launches != before + len(ssd_kernel.PHASES):
+            raise AssertionError(f"ssd_scan {name}: {ssd_kernel.launches - before} launches")
         ry, rst = ssd_scan_ref(x, dt, a_log, bm, cm, chunk)
         rtol = BF16_ULP if x.dtype == torch.bfloat16 else 0.0
         dy = (y.float() - ry.float()).abs()
@@ -412,11 +460,15 @@ def main() -> int:
             raise AssertionError(f"ssd_scan {name}: max|dy|={err_y:.3g}, "
                                  f"max|dstate|={err_st:.3g} (atol {SSD_ATOL}, rtol {rtol})")
         dtype = str(x.dtype).replace("torch.", "")
-        ssd_checks.append(dict(case=name, dtype=dtype, shape=list(x.shape), g=bm.shape[2],
-                               n=bm.shape[3], chunk=chunk, max_abs_err_y=err_y,
-                               max_abs_err_state=err_st, atol=SSD_ATOL, rtol_y=rtol))
-        log(f"kernel check ssd_scan {name} {dtype} x{list(x.shape)} G={bm.shape[2]} "
-            f"N={bm.shape[3]} chunk={chunk}: max|dy|={err_y:.3g} max|dstate|={err_st:.3g}")
+        ssd_checks.append(dict(case=name, dtype=dtype, bc_dtype=str(bm.dtype)[6:],
+                               shape=list(x.shape), g=bm.shape[2], n=bm.shape[3], chunk=chunk,
+                               bc_contiguous=bm.is_contiguous(),
+                               max_abs_err_y=err_y, max_abs_err_state=err_st, atol=SSD_ATOL,
+                               rtol_y=rtol))
+        log(f"kernel check ssd_scan {name} {dtype} x{list(x.shape)} B/C {bm.dtype} "
+            f"{'contiguous' if bm.is_contiguous() else 'strided'} G={bm.shape[2]} "
+            f"N={bm.shape[3]} chunk={chunk}: max|dy|={err_y:.3g} "
+            f"max|dstate|={err_st:.3g}")
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -445,6 +497,18 @@ def main() -> int:
                   0.1 + 0.5 * torch.rand((b, s_len, h), generator=gen, device=dev),
                   randn(h, scale=0.5), randn(b, s_len, g, n, scale=0.3),
                   randn(b, s_len, g, n, scale=0.3), chunk)
+    # as ssm_block passes them: x, B and C column slices of one xBC tensor
+    # (bf16 and strided), G < H, several tiles a sequence and a ragged tile
+    for b, s_len, h, p, g, n, chunk, dtype in [(2, 384, 8, 64, 2, 16, 128, torch.bfloat16),
+                                               (1, 2048, 50, 64, 1, 16, 256, torch.bfloat16),
+                                               (1, 320, 6, 32, 3, 24, 32, torch.float32)]:
+        xbc = randn(b, s_len, h * p + 2 * g * n, dtype=dtype)
+        xbc[..., h * p:] *= 0.3  # B and C at the scale of the cases above
+        x = xbc[..., :h * p].reshape(b, s_len, h, p)
+        bm = xbc[..., h * p:h * p + g * n].reshape(b, s_len, g, n)
+        cm = xbc[..., h * p + g * n:].reshape(b, s_len, g, n)
+        dt = 0.1 + 0.5 * torch.rand((b, s_len, h), generator=gen, device=dev)
+        check_ssd("xBC slices", x, dt, randn(h, scale=0.5), bm, cm, chunk)
 
     # the pool's model; its prefill gives the kernels their main-path inputs
     t0 = time.perf_counter()
@@ -605,6 +669,7 @@ def main() -> int:
 
     runs, profiled = [], []
     topk_kernel.launches = 0  # main path starts: count only its launches
+    topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
     t_serve = time.perf_counter()
     for cfg in ("bare", "adapter", "rerank"):
         table_db = db_native if cfg == "rerank" else db
@@ -652,10 +717,13 @@ def main() -> int:
     fused.close()
     dense.close()
     main_launches = topk_kernel.launches
+    serve_routes = dict(topk_kernel.launches_by_route)
     log(f"serving path: {time.perf_counter() - t_serve:.1f} s, topk_sim launches "
-        f"{main_launches}")
-    if main_launches == 0:
-        raise AssertionError("the serving path never launched the topk_sim kernel")
+        f"{main_launches}, by route " + json.dumps(serve_routes))
+    # the 100,000-tool batches take the split route, the re-ranker's
+    # native 2,413 tools the cluster route
+    if main_launches == 0 or not all(serve_routes.values()):
+        raise AssertionError(f"the serving path launched topk_sim {serve_routes}")
 
     # where a batch's time goes on the card: device time per batch, by
     # kernel, and the host-clock time of the same 20 batches (the profiler
@@ -737,6 +805,7 @@ def main() -> int:
     for mod in kernel_modules.values():
         mod.launches = 0  # the pool path starts: count only its launches
     flash_kernel.launches_by_route = dict.fromkeys(flash_kernel.ROUTES, 0)
+    topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
     t_pool = time.perf_counter()
     while batcher.queue or any(slot is not None for slot in batcher.slots):
         t = time.perf_counter()
@@ -746,6 +815,7 @@ def main() -> int:
     pool_s = time.perf_counter() - t_pool
     pool_launches = {name: mod.launches for name, mod in kernel_modules.items()}
     pool_flash_routes = dict(flash_kernel.launches_by_route)
+    pool_topk_routes = dict(topk_kernel.launches_by_route)
     done = sorted(batcher.completed, key=lambda r: r.request_id)
     if [r.request_id for r in done] != list(range(POOL_REQUESTS)):
         raise AssertionError(f"pool: {len(done)} of {POOL_REQUESTS} requests completed")
@@ -753,13 +823,18 @@ def main() -> int:
         if len(r.generated) != POOL_NEW_TOKENS or not all(
                 0 <= t < pool_cfg.vocab_size for t in r.generated):
             raise AssertionError(f"pool: request {r.request_id} generated {r.generated}")
+    # one launch per layer and prefill for flash, one per phase for the
+    # scan, one per routed batch for topk_sim (2,413 tools: the cluster route)
     expect = {"flash_attention": POOL_REQUESTS * pool_cfg.n_layers,
-              "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers, "topk_sim": 2 * len(routed)}
+              "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers * len(ssd_kernel.PHASES),
+              "topk_sim": len(routed)}
     expect_routes = {"wgmma": POOL_REQUESTS * pool_cfg.n_layers, "fma": 0}
+    expect_topk = {"cluster": len(routed), "split": 0}
     if (pool_launches != expect or pool_flash_routes != expect_routes
-            or len(prefill_ms) != POOL_REQUESTS):
+            or pool_topk_routes != expect_topk or len(prefill_ms) != POOL_REQUESTS):
         raise AssertionError(f"pool: launches {pool_launches}, flash by route "
-                             f"{pool_flash_routes}, expected {expect} and {expect_routes} "
+                             f"{pool_flash_routes}, topk_sim by route {pool_topk_routes}, "
+                             f"expected {expect}, {expect_routes} and {expect_topk} "
                              f"({len(prefill_ms)} prefills, {len(routed)} routed batches)")
     n_rule = agree([r.route_result for r in done],
                    dense_native.route_batch([r.query_tokens for r in done]), "pool routing")
@@ -772,12 +847,13 @@ def main() -> int:
         prefill_ms=list(prefill_ms), decode_ms_p50=float(np.percentile(decode_ms, 50)),
         decode_ms_p99=float(np.percentile(decode_ms, 99)), decode_ms=list(decode_ms),
         routed_batches=routed, launches=pool_launches,
-        flash_launches_by_route=pool_flash_routes, routing_near_tie_rows=n_rule,
+        flash_launches_by_route=pool_flash_routes, topk_launches_by_route=pool_topk_routes,
+        routing_near_tie_rows=n_rule,
         prefill_tokens_per_s=float(lens.sum() / (sum(prefill_ms) / 1e3)))
     log(f"pool: {POOL_REQUESTS} requests drained in {len(tick_ms)} ticks, {pool_s:.2f} s; "
         f"{generated} tokens, {generated / pool_s:.1f} generated tokens/s; launches "
         + json.dumps(pool_launches) + " (flash by route " + json.dumps(pool_flash_routes)
-        + f"; {len(routed)} routed batches {routed}); tools equal "
+        + ", topk_sim by route " + json.dumps(pool_topk_routes) + f"; {len(routed)} routed batches {routed}); tools equal "
         f"to the dense backend's (rows reordered inside near-ties: {n_rule})")
     log("pool prefill ms per request (prompt tokens): " + ", ".join(
         f"{ms:.1f} ({int(n)})" for ms, n in zip(prefill_ms, lens)))
@@ -836,7 +912,8 @@ def main() -> int:
                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
     busy = sum(by_kernel.values())
     own = {name: sum(ms for key, ms in by_kernel.items() if name in key)
-           for name in ("flash_attention_wgmma", "flash_attention_fwd", "ssd_scan_fwd")}
+           for name in ("flash_attention_wgmma", "flash_attention_fwd", "ssd_scan_states",
+                        "ssd_scan_carry", "ssd_scan_output")}
     pool_stats["prefill_alone"] = dict(
         tokens=CAPTURE_LEN, host_ms=alone_ms, profiled_host_ms=profiled_ms, busy_ms=busy,
         idle_share=1 - busy / profiled_ms, kernel_ms=own)
@@ -853,16 +930,67 @@ def main() -> int:
                           (8, table_native, 25), (64, table_native, 25)]:
         q = torch.from_numpy(q_all[:n_q]).to(dev)
         n_t, d = table.shape
-        ms = cuda_ms(lambda: topk_kernel.topk_sim_cuda(q, table, k))
+        route = topk_kernel.topk_route(n_q, n_t, d, k, table, q)
+        rounds = alternating({
+            "kernel": lambda: topk_kernel.topk_sim_cuda(q, table, k),
+            "library": lambda: torch.topk(q @ table.T, k)})
+        ms, lib = (float(np.median(rounds[key])) for key in ("kernel", "library"))
         plain = cuda_ms(lambda: topk_sim_ref(q, table, k))
-        lib = cuda_ms(lambda: torch.topk(q @ table.T, k))
         bound, bound_by = topk_bound(n_q, n_t, d, k)
-        shapes.append(dict(shape=[n_q, n_t, d, k], ms=ms, plain_ms=plain, library_ms=lib,
-                           bound_ms=bound, bound_by=bound_by))
-        log(f"time topk_sim Q={n_q} T={n_t} D={d} k={k}: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, torch.topk(q@t.T) {lib:.4f} ms, bound {bound:.4f} ms "
-            f"({bound_by}) on {card}")
+        shapes.append(dict(shape=[n_q, n_t, d, k], route=route, ms=ms, plain_ms=plain,
+                           library_ms=lib, bound_ms=bound, bound_by=bound_by,
+                           rounds_ms=rounds))
+        log(f"time topk_sim Q={n_q} T={n_t} D={d} k={k} ({route}): kernel median {ms:.4f} ms "
+            f"(rounds " + ", ".join(f"{t:.4f}" for t in rounds["kernel"])
+            + f"), torch.topk(q@t.T) median {lib:.4f} ms (rounds "
+            + ", ".join(f"{t:.4f}" for t in rounds["library"])
+            + f"), kernel below it in {sum(a < b for a, b in zip(*rounds.values()))} of "
+            f"{TIME_ROUNDS} rounds; plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
+            f"on {card}")
     head = shapes[1]  # the bare path's full batch: Q=64 over 100,000 tools
+
+    # the cluster route against the split route as the table grows (the
+    # crossover sets CLUSTER_MAX_T)
+    crossover = []
+    for n_q in (8, 64):
+        q = torch.from_numpy(q_all[:n_q]).to(dev)
+        for n_t in CROSSOVER_T:
+            table = table_big[:n_t]
+            rounds = alternating({r: functools.partial(topk_kernel.topk_sim_cuda, q, table, 25,
+                                                       route=r) for r in topk_kernel.ROUTES},
+                                 rounds=3, iters=100)
+            row = dict(n_q=n_q, n_t=n_t, k=25, **{f"{r}_ms": float(np.median(t))
+                                                  for r, t in rounds.items()})
+            crossover.append(row)
+            log(f"crossover topk_sim Q={n_q} T={n_t} k=25: cluster {row['cluster_ms']:.4f} ms, "
+                f"split {row['split_ms']:.4f} ms (medians of 3 rounds in turns) on {card}")
+    # one small call: host dispatch against device time. Host: the host
+    # clock of 200 back-to-back calls (the card keeps up, so this is the
+    # time to issue one); device: the profiler's kernel time per launch
+    host_split = []
+    for n_q in (8, 64):
+        q = torch.from_numpy(q_all[:n_q]).to(dev)
+        call = functools.partial(topk_kernel.topk_sim_cuda, q, table_native, 25)
+        for _ in range(20):
+            call()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            call()
+        host_ms = (time.perf_counter() - t) * 1e3 / 200
+        torch.cuda.synchronize()
+        event_ms = cuda_ms(call, iters=200)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+        dev_ms = {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "topk_sim" in e.key}
+        host_split.append(dict(n_q=n_q, n_t=table_native.shape[0], k=25, host_ms=host_ms,
+                               event_ms=event_ms, device_ms_per_launch=dev_ms))
+        log(f"topk_sim Q={n_q} T={table_native.shape[0]} k=25, one call: host dispatch "
+            f"{host_ms:.4f} ms, CUDA-event time {event_ms:.4f} ms, device time per launch "
+            + json.dumps({k[:40]: round(v, 5) for k, v in dev_ms.items()}) + f" on {card}")
 
     # the new kernels at the full-width shapes of layer 0's prefill (bf16)
     (q, k, v), kw = captured["flash"][0]
@@ -888,13 +1016,30 @@ def main() -> int:
         + f"), plain {f_plain:.4f} ms, SDPA (same mask, kv repeated) {f_lib:.4f} ms, bound "
         f"{f_bound:.4f} ms ({f_by}) on {card}")
     ssd_args, _ = captured["ssd"][0]
-    s_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_cuda(*ssd_args))
-    s_plain = cuda_ms(lambda: ssd_scan_ref(*ssd_args))
-    s_bound, s_by = ssd_bound(*ssd_args[:5])
     x0 = ssd_args[0]
+    s_bound, s_by = ssd_bound(*ssd_args[:5])
+    # the three launches of one prepared call (the kernels), and a whole
+    # call (checks and allocations on the host too)
+    ctx = ssd_kernel.prepare(*ssd_args)
+    s_ms = cuda_ms(lambda: [ssd_kernel.launch_phase(ctx, ph) for ph in ssd_kernel.PHASES],
+                   iters=100)
+    s_call_ms = cuda_ms(lambda: ssd_kernel.ssd_scan_cuda(*ssd_args), iters=100)
+    # a phase alone is shorter than its host dispatch, so each phase's time
+    # is the profiler's device time per launch
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            ssd_kernel.ssd_scan_cuda(*ssd_args)
+        torch.cuda.synchronize()
+    s_phase_ms = {phase: sum(e.self_device_time_total for e in prof.key_averages()
+                             if f"ssd_scan_{phase}" in e.key) / 1e3 / 50
+                  for phase in ssd_kernel.PHASES}
+    s_device_ms = sum(s_phase_ms.values())
+    s_plain = cuda_ms(lambda: ssd_scan_ref(*ssd_args))
     log(f"time ssd_scan x{list(x0.shape)} {x0.dtype} N={ssd_args[3].shape[-1]} chunk "
-        f"{ssd_args[5]}: kernel {s_ms:.4f} ms, plain {s_plain:.4f} ms, no library call, bound "
-        f"{s_bound:.4f} ms ({s_by}) on {card}")
+        f"{ssd_args[5]}: kernels {s_ms:.4f} ms (CUDA events over the three launches; a whole "
+        f"call {s_call_ms:.4f} ms), device {s_device_ms:.4f} ms "
+        "(profiler, per phase " + json.dumps({ph: round(v, 4) for ph, v in s_phase_ms.items()})
+        + f"), plain {s_plain:.4f} ms, no library call, bound {s_bound:.4f} ms ({s_by}) on {card}")
 
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
@@ -904,6 +1049,8 @@ def main() -> int:
         shape=head["shape"], shapes=shapes, checks=checks,
         index_agreement="exact except reordering inside near-ties (rows counted in checks)",
         launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"]},
+        launches_by_route={"serve": serve_routes, "pool": pool_topk_routes},
+        crossover=crossover, host_vs_device=host_split,
     ), dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -923,6 +1070,8 @@ def main() -> int:
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
                    chunk=ssd_args[5], dtype=str(x0.dtype)),
+        tile=ssd_kernel.TILE, call_ms=s_call_ms, device_ms=s_device_ms,
+        device_ms_by_phase=s_phase_ms,
         checks=ssd_checks,
     )]
     summary = dict(card=card, seconds=time.perf_counter() - t_start, runs=runs,

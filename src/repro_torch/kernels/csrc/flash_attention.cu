@@ -90,6 +90,8 @@
 
 #include <cstdint>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr float NEG = -1e30f;  // the running max before any live key (both kernels)
@@ -304,37 +306,6 @@ constexpr int BOX = 64;                  // bf16 columns of one 128B-swizzled bo
 constexpr int ROW_BYTES = BOX * 2;       // 128
 constexpr int SUB_Q = BQ * ROW_BYTES;    // one 64-column q box: 16 KB
 constexpr int SUB_KV = BK * ROW_BYTES;   // one 64-column k or v box: 16 KB
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// spin until the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
 
 // one box of a 3-D tensor map into shared memory; completes on `bar`
 __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,

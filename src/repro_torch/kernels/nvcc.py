@@ -2,8 +2,8 @@
 
 Each source `kernels/csrc/<name>.cu` has a plain C interface and is
 compiled for `sm_90a` into its own shared library under the ignored
-`kernels/build/`, named by a hash of the source and the flags, so an
-unchanged source is built once. `CudaLibrary.load()` runs nvcc if the
+`kernels/build/`, named by a hash of the source, the headers of `csrc/` and
+the flags, so an unchanged source is built once. `CudaLibrary.load()` runs nvcc if the
 library is not built yet, loads it and sets its argument types; loads of
 different libraries from different threads build in parallel. Nothing here
 runs at import: the CPU tests import the kernel modules on machines with no
@@ -81,8 +81,9 @@ class CudaLibrary:
         with self._lock:
             if self.lib is not None:
                 return self.lib
+            headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
             digest = hashlib.sha256(
-                self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+                self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
             ).hexdigest()[:16]
             out = BUILD_DIR / f"{self.name}_{digest}.so"
             t0, log, cached = time.perf_counter(), "", out.exists()

@@ -1,24 +1,34 @@
-"""Hopper CUDA kernel for fused similarity + top-K: build, binding, launch.
+"""Hopper CUDA kernels for fused similarity + top-K: build, binding, routing
+and launch.
 
-Replaces the Pallas TPU kernel `repro/kernels/topk_sim/kernel.py::
+Replace the Pallas TPU kernel `repro/kernels/topk_sim/kernel.py::
 topk_sim_pallas`. The source is `repro_torch/kernels/csrc/topk_sim.cu`
-(its header says what bounds the kernel and how the two passes are cut).
-`build()` compiles it with nvcc for `sm_90a` into a shared library with a
-plain C interface (`kernels/nvcc.py`), cached under `kernels/build/` by a
-hash of the source, and loads it with ctypes. Nothing here runs at
-import: the CPU tests import this module on machines with no nvcc and no
-card.
+(its header says what bounds each kernel and how it is cut). `build()`
+compiles it with nvcc for `sm_90a` into a shared library with a plain C
+interface (`kernels/nvcc.py`), cached under `kernels/build/` by a hash of
+the source, and loads it with ctypes. Nothing here runs at import: the CPU
+tests import this module on machines with no nvcc and no card.
 
-`topk_sim_cuda` checks its inputs, allocates the outputs and the scratch
-with `torch.empty`, and launches both passes on the current stream. Each
-launch adds one to `launches` (two per call), so a run can show that its
-main path went through the kernel. A launch the runtime refuses raises.
+The source holds two routes, and `topk_route` picks one before launch from
+shape and alignment: "cluster" (one launch; a thread-block cluster per
+query block streams the table through shared memory with bulk copies and
+merges its lists in distributed shared memory) for tables of up to
+`CLUSTER_MAX_T` rows, and "split" (two launches: table slices over the
+whole card, then a merge through a scratch tensor) for larger tables and
+for inputs the bulk copies cannot take. Neither falls back to the other.
+
+`topk_sim_cuda` checks its inputs, allocates the outputs (and the split
+route's scratch) with `torch.empty`, and launches on the current stream.
+Each kernel launch adds one to `launches` and to `launches_by_route[route]`,
+so a run can show that its main path went through the kernels, and through
+which. A launch the runtime refuses, or a cluster that cannot be resident,
+raises.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,11 +36,17 @@ from repro_torch.core.retrieval import NEG_INF
 from repro_torch.kernels.nvcc import CudaLibrary, sm_count
 
 __all__ = [
+    "CLUSTER_MAX_T",
     "LIBRARY",
+    "ROUTES",
     "build",
     "build_info",
+    "cluster_qb",
+    "cluster_stages",
     "launches",
+    "launches_by_route",
     "split_plan",
+    "topk_route",
     "topk_sim_cuda",
 ]
 
@@ -40,8 +56,25 @@ MAX_K = 128
 MAX_D = 1024
 MAX_CAND = 4096  # n_split * k, merged in shared memory by pass 2
 BLOCKS_PER_SM = 4  # pass 1's grid target
+# the cluster route's
+CR = 32  # table rows per ring chunk
+CTILE = 128  # sc_s columns: rows offered to the lists at once
+MAX_STAGES = 4  # ring depth
+BAR_BYTES = 128
+CWARPS = 8  # warps a block
+MAX_CS = 16  # blocks a cluster
+SMEM_OPT_IN = 227 * 1024
+# the largest table the cluster route takes (on an H100 it beat the split
+# route at 6,144 rows for Q = 8 and 64 and lost at 8,192 for Q = 64) and its
+# queries per block for batches of more than 8 (16 beat 8 and 32 at Q = 64),
+# from chip_smoke.py's and scripts/kernel_ablation.py's timing
+CLUSTER_MAX_T = 6144
+CLUSTER_QB = 16
+ROUTES = ("cluster", "split")
 
-launches = 0  # kernel launches since the last reset (two per topk_sim_cuda)
+launches = 0  # kernel launches since the last reset (1 a call on "cluster", 2 on "split")
+launches_by_route = dict.fromkeys(ROUTES, 0)  # the same launches, by route
+_cluster_size: Dict[tuple, int] = {}  # (device, qb, d, k, stages) -> 16 or 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -54,6 +87,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         ci, vp, ci, ci, ci, ctypes.c_float, vp, vp, vp,
     ]
     lib.topk_sim_merge_launch.restype = ci
+    lib.topk_sim_cluster_plan.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
+    lib.topk_sim_cluster_plan.restype = ci
+    lib.topk_sim_cluster_launch.argtypes = [
+        ci, ci, ci, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp, vp, vp,
+    ]
+    lib.topk_sim_cluster_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("topk_sim", _bind)
@@ -86,12 +125,53 @@ def split_plan(n_q: int, n_t: int, k: int, n_sms: int) -> Tuple[int, int, int]:
     return qb, _cdiv(n_t, rows), rows
 
 
+def cluster_qb(n_q: int) -> int:
+    """Queries per cluster on the cluster route: 8 for batches of up to 8,
+    else CLUSTER_QB."""
+    return 8 if n_q <= 8 else CLUSTER_QB
+
+
+def cluster_smem_bytes(qb: int, d: int, k: int, stages: int) -> int:
+    """Dynamic shared memory of one cluster-route block (as topk_sim.cu)."""
+    return (BAR_BYTES + 4 * d * (qb + stages * CR) + 4 * qb * CTILE
+            + 8 * (CWARPS * MAX_K + qb * k + MAX_CS * k))
+
+
+def cluster_stages(qb: int, d: int, k: int) -> int:
+    """The deepest ring (<= MAX_STAGES) that fits a block; 0 if not two."""
+    for stages in range(MAX_STAGES, 1, -1):
+        if cluster_smem_bytes(qb, d, k, stages) <= SMEM_OPT_IN:
+            return stages
+    return 0
+
+
+def _cluster_takes(n_q: int, d: int, k: int, tensors) -> bool:
+    """Whether the cluster kernel can take these inputs at all: rows of a
+    whole number of 16-byte units on 16-byte aligned bases (bulk copies),
+    and a ring of at least two stages in shared memory."""
+    return (d % 4 == 0 and 1 <= k <= MAX_K
+            and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and cluster_stages(cluster_qb(n_q), d, k) >= 2)
+
+
+def topk_route(n_q: int, n_t: int, d: int, k: int, table: torch.Tensor,
+               queries: Optional[torch.Tensor] = None) -> str:
+    """"cluster" for a table of at most CLUSTER_MAX_T rows that the cluster
+    kernel can take (D % 4 == 0, 16-byte aligned table and queries, the
+    ring in shared memory); else "split"."""
+    tensors = (table,) if queries is None else (table, queries)
+    if n_t <= CLUSTER_MAX_T and _cluster_takes(n_q, d, k, tensors):
+        return "cluster"
+    return "split"
+
+
 def topk_sim_cuda(
     queries: torch.Tensor,  # [Q, D] float32, contiguous, on a CUDA device
     table: torch.Tensor,  # [T, D] float32, contiguous, same device
     k: int,
+    route: Optional[str] = None,  # None: topk_route's choice; forced only to measure
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(scores [Q, k] float32 descending, indices [Q, k] int64) by the kernel."""
+    """(scores [Q, k] float32 descending, indices [Q, k] int64) by a kernel."""
     global launches
     for name, x in (("queries", queries), ("table", table)):
         if x.device.type != "cuda":
@@ -112,6 +192,11 @@ def topk_sim_cuda(
         raise ValueError(f"k={k} outside [1, min(T={n_t}, {MAX_K})]")
     if n_t >= 2**31 - 1:
         raise ValueError(f"T={n_t} does not fit the kernel's 32-bit row ids")
+    if route is None:
+        route = topk_route(n_q, n_t, d, k, table, queries)
+    elif route not in ROUTES or (
+            route == "cluster" and not _cluster_takes(n_q, d, k, (table, queries))):
+        raise ValueError(f"route {route!r} cannot take these inputs")
     dev = queries.device
     n_sms = sm_count(dev, "topk_sim")
     scores = torch.empty((n_q, k), dtype=torch.float32, device=dev)
@@ -119,19 +204,44 @@ def topk_sim_cuda(
     if n_q == 0:
         return scores, idx
     lib = LIBRARY.load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "cluster":
+        qb = cluster_qb(n_q)
+        stages = cluster_stages(qb, d, k)
+        key = (dev.index, qb, d, k, stages)
+        cs = _cluster_size.get(key)
+        if cs is None:
+            out = ctypes.c_int(0)
+            LIBRARY.check(lib.topk_sim_cluster_plan(dev.index, qb, d, k, stages,
+                                                    ctypes.byref(out)), "topk_sim_cluster plan")
+            if out.value == 0:
+                raise RuntimeError(
+                    f"topk_sim_cluster: no cluster of 16 or 8 blocks with "
+                    f"{cluster_smem_bytes(qb, d, k, stages)} bytes of shared memory each can "
+                    f"be resident on {torch.cuda.get_device_name(dev)}")
+            cs = _cluster_size[key] = out.value
+        rc = lib.topk_sim_cluster_launch(
+            dev.index, qb, cs, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k, stages,
+            NEG_INF, scores.data_ptr(), idx.data_ptr(), stream,
+        )
+        LIBRARY.check(rc, "topk_sim_cluster")
+        launches += 1
+        launches_by_route["cluster"] += 1
+        return scores, idx
     qb, n_split, rows = split_plan(n_q, n_t, k, n_sms)
     partial = torch.empty((n_q, n_split, k), dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.topk_sim_partial_launch(
         dev.index, qb, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k,
         n_split, rows, NEG_INF, partial.data_ptr(), stream,
     )
     LIBRARY.check(rc, "topk_sim_partial")
     launches += 1
+    launches_by_route["split"] += 1
     rc = lib.topk_sim_merge_launch(
         dev.index, partial.data_ptr(), n_q, n_split, k, NEG_INF,
         scores.data_ptr(), idx.data_ptr(), stream,
     )
     LIBRARY.check(rc, "topk_sim_merge")
     launches += 1
+    launches_by_route["split"] += 1
     return scores, idx

@@ -38,6 +38,19 @@ def _unit_rows(rng, n, d, device):
     return torch.from_numpy(x).to(device)
 
 
+def _assert_cluster_ranking(q, t, ks, ki, rs, ri):
+    """Scores within 1e-5 of the plain version; indices equal to its own
+    except between rows whose float64 similarities are within 1e-6 of each
+    other: the cluster kernel sums each product over a tree of lanes and
+    cuBLAS in its own order, so float32 near-ties may fall either way."""
+    torch.testing.assert_close(ks, rs, atol=1e-5, rtol=0)
+    exact = q.double() @ t.double().T
+    differ = ki != ri
+    gap = (exact.gather(1, ki) - exact.gather(1, ri)).abs()
+    assert bool((gap[differ] < 1e-6).all()), gap[differ].max()
+    assert all(len(set(row)) == len(row) for row in ki.tolist())
+
+
 @pytest.mark.parametrize(
     "q,t,d,k",
     [(1, 2413, 384, 5), (8, 2413, 384, 25), (33, 5003, 384, 25), (7, 199, 384, 5),
@@ -46,11 +59,74 @@ def _unit_rows(rng, n, d, device):
 def test_topk_sim_kernel_matches_plain(cuda_device, q, t, d, k):
     rng = np.random.default_rng(q * 7919 + t)
     qt, tt = _unit_rows(rng, q, d, cuda_device), _unit_rows(rng, t, d, cuda_device)
-    before = topk_kernel.launches
+    route = topk_kernel.topk_route(q, t, d, k, tt, qt)
+    before, before_route = topk_kernel.launches, topk_kernel.launches_by_route[route]
     ks, ki = topk_sim(qt, tt, k)
     torch.cuda.synchronize()
-    assert topk_kernel.launches == before + 2  # pass 1 and pass 2
+    n_launch = 1 if route == "cluster" else 2  # one cluster launch, or pass 1 and pass 2
+    assert topk_kernel.launches == before + n_launch
+    assert topk_kernel.launches_by_route[route] == before_route + n_launch
     rs, ri = topk_sim_ref(qt, tt, k)
+    torch.testing.assert_close(ks, rs, atol=1e-5, rtol=0)
+    assert torch.equal(ki, ri)
+    if route == "cluster":  # the same inputs on the split route
+        ss, si = topk_kernel.topk_sim_cuda(qt, tt, k, route="split")
+        torch.testing.assert_close(ss, rs, atol=1e-5, rtol=0)
+        assert torch.equal(si, ri)
+
+
+@pytest.mark.parametrize("k", [5, 25, 128])
+@pytest.mark.parametrize("t", [300, 2047, 2413, topk_kernel.CLUSTER_MAX_T])
+@pytest.mark.parametrize("q", [1, 8, 33, 64])
+def test_topk_sim_cluster_route_matches_plain(cuda_device, q, t, k):
+    """Small tables take the one-launch cluster route, which agrees with the
+    plain version as `_assert_cluster_ranking` says."""
+    rng = np.random.default_rng(q * 131 + t + k)
+    qt, tt = _unit_rows(rng, q, 384, cuda_device), _unit_rows(rng, t, 384, cuda_device)
+    assert topk_kernel.topk_route(q, t, 384, k, tt, qt) == "cluster"
+    before = dict(topk_kernel.launches_by_route)
+    ks, ki = topk_sim(qt, tt, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, "cluster": before["cluster"] + 1}
+    rs, ri = topk_sim_ref(qt, tt, k)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+@pytest.mark.parametrize("route", ["cluster", "split"])
+@pytest.mark.parametrize("k", [8, 128])
+def test_topk_sim_routes_break_ties_at_every_boundary(cuda_device, route, k):
+    """One-hot rows tiled so bitwise ties cross every chunk, slice and
+    cluster boundary of either route: lowest index first."""
+    base = torch.zeros((9, 128), device=cuda_device)
+    base[torch.arange(9), torch.arange(9)] = 1.0
+    table = base.repeat(topk_kernel.CLUSTER_MAX_T // 9, 1).contiguous()
+    q = _unit_rows(np.random.default_rng(2), 40, 128, cuda_device)
+    ks, ki = topk_kernel.topk_sim_cuda(q, table, k, route=route)
+    rs, ri = topk_sim_ref(q, table, k)
+    torch.testing.assert_close(ks, rs, atol=1e-6, rtol=0)
+    best = q[:, :9].argmax(dim=1)
+    assert torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=cuda_device)[None, :])
+
+
+@pytest.mark.parametrize("case", ["d130", "misaligned", "large"])
+def test_topk_sim_split_route_takes_what_the_cluster_cannot(cuda_device, case):
+    """D % 4 != 0, a base off a 16-byte boundary and a table past
+    CLUSTER_MAX_T go to the split route, which agrees with the plain version."""
+    rng = np.random.default_rng(130)
+    d = 130 if case == "d130" else 384
+    t = topk_kernel.CLUSTER_MAX_T + 1 if case == "large" else 2413
+    qt = _unit_rows(rng, 8, d, cuda_device)
+    tt = _unit_rows(rng, t + 1, d, cuda_device).view(-1)
+    tt = (tt[1:1 + t * d] if case == "misaligned" else tt[:t * d]).view(t, d)
+    assert topk_kernel.topk_route(8, t, d, 25, tt, qt) == "split"
+    if case != "large":
+        with pytest.raises(ValueError):
+            topk_kernel.topk_sim_cuda(qt, tt, 25, route="cluster")
+    before = dict(topk_kernel.launches_by_route)
+    ks, ki = topk_sim(qt, tt, 25)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, "split": before["split"] + 2}
+    rs, ri = topk_sim_ref(qt, tt, 25)
     torch.testing.assert_close(ks, rs, atol=1e-5, rtol=0)
     assert torch.equal(ki, ri)
 
@@ -175,9 +251,38 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, dtype, b, s, h, p, g, n, chu
     before = ssd_kernel.launches
     y, st = ssd_scan(x, dt, a_log, bm, cm, chunk)
     torch.cuda.synchronize()
-    assert ssd_kernel.launches == before + 1
+    assert ssd_kernel.launches == before + len(ssd_kernel.PHASES)  # one launch a phase
     ry, rst = ssd_scan_ref(x, dt, a_log, bm, cm, chunk)
     assert y.dtype == dtype and st.dtype == torch.float32
+    rtol = 2**-7 if dtype == torch.bfloat16 else 0
+    torch.testing.assert_close(y.float(), ry.float(), atol=1e-3, rtol=rtol)
+    torch.testing.assert_close(st, rst, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", [(2, 384, 8, 64, 2, 16, 128),
+                                               (1, 2048, 50, 64, 1, 16, 256),
+                                               (1, 200, 6, 32, 3, 24, 40),
+                                               (1, 100, 4, 36, 2, 6, 20)])
+def test_ssd_scan_kernel_reads_xbc_slices(cuda_device, dtype, b, s, h, p, g, n, chunk):
+    """x, B and C as ssm_block passes them: column slices of one xBC tensor,
+    in its dtype and row stride, with several tiles a sequence (a ragged
+    last one at S = 200 and 100) and G < H, read 16 bytes at a time except
+    at P = 36, N = 6 (rows of other widths); held to the tolerances above."""
+    rng = np.random.default_rng(s + g)
+    xbc = rng.normal(size=(b, s, h * p + 2 * g * n)).astype(np.float32)
+    xbc[..., h * p:] *= 0.3
+    xbc = torch.from_numpy(xbc).to(cuda_device, dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+    cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    assert not (x.is_contiguous() or bm.is_contiguous() or cm.is_contiguous())
+    dt = torch.from_numpy((0.1 + 0.5 * rng.random((b, s, h))).astype(np.float32)).to(cuda_device)
+    a_log = torch.from_numpy((rng.normal(size=(h,)) * 0.5).astype(np.float32)).to(cuda_device)
+    before = ssd_kernel.launches
+    y, st = ssd_kernel.ssd_scan_cuda(x, dt, a_log, bm, cm, chunk)
+    assert ssd_kernel.launches == before + len(ssd_kernel.PHASES)
+    ry, rst = ssd_scan_ref(x, dt, a_log, bm, cm, chunk)
     rtol = 2**-7 if dtype == torch.bfloat16 else 0
     torch.testing.assert_close(y.float(), ry.float(), atol=1e-3, rtol=rtol)
     torch.testing.assert_close(st, rst, atol=1e-3, rtol=0)

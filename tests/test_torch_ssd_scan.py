@@ -98,3 +98,16 @@ def test_ssd_scan_dispatch_and_input_checks():
     before = cuda_kernel.launches
     ssd_scan(*args, 16)
     assert cuda_kernel.launches == before  # the plain version counts no launch
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n", [(1, 512, 4, 32, 1, 16), (2, 256, 6, 16, 3, 8)])
+def test_ssd_chunked_tile_64_matches_pallas_chunk_256(b, s, h, p, g, n):
+    """The chunked algorithm is exact for any chunk length, which the CUDA
+    kernel's 64-row tiles rely on: the port's plain `ssd_chunked` at chunk
+    64 against the Pallas kernel (interpret mode) at chunk 256, within the
+    file's atol=1e-3."""
+    args = _inputs(np.random.default_rng(s + n), b, s, h, p, g, n)
+    py, pst = ssd_scan_pallas(*map(jnp.asarray, args), 256, interpret=True)
+    y, st = ssm.ssd_chunked(*map(torch.from_numpy, args), 64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(py), atol=1e-3)
+    np.testing.assert_allclose(st.numpy(), np.asarray(pst), atol=1e-3)

@@ -119,3 +119,29 @@ def test_split_plan_covers_the_table():
         assert rows % cuda_kernel.TB == 0
         assert (n_split - 1) * rows < n_t <= n_split * rows
         assert n_split * k <= cuda_kernel.MAX_CAND
+
+
+@pytest.mark.parametrize("n_q,n_t,d,k,offset,want", [
+    (8, 2413, 384, 25, 0, "cluster"),  # the pool's admission shape
+    (64, 2413, 384, 25, 0, "cluster"),  # the re-ranker's batch
+    (1, 300, 384, 128, 0, "cluster"),
+    (8, cuda_kernel.CLUSTER_MAX_T, 384, 25, 0, "cluster"),  # the reach, inclusive
+    (8, cuda_kernel.CLUSTER_MAX_T + 1, 384, 25, 0, "split"),
+    (64, 100_000, 384, 5, 0, "split"),  # the serving table
+    (8, 2413, 130, 25, 0, "split"),  # rows are not whole 16-byte units
+    (8, 2413, 384, 25, 1, "split"),  # a table base off a 16-byte boundary
+    (64, 2413, 1024, 128, 0, "split"),  # no two-stage ring fits shared memory
+])
+def test_topk_route_picks_by_shape_and_alignment(n_q, n_t, d, k, offset, want):
+    """`topk_route` is decided before launch from shape and alignment alone
+    (pure Python: it runs here), and agrees with the shared-memory sizing."""
+    flat = torch.zeros(n_t * d + 4)
+    table = flat[offset:offset + n_t * d].view(n_t, d)
+    queries = torch.zeros((n_q, d))
+    assert cuda_kernel.topk_route(n_q, n_t, d, k, table, queries) == want
+    qb = cuda_kernel.cluster_qb(n_q)
+    stages = cuda_kernel.cluster_stages(qb, d, k)
+    fits = stages >= 2 and cuda_kernel.cluster_smem_bytes(qb, d, k, stages) <= 227 * 1024
+    if want == "cluster":
+        assert fits and d % 4 == 0
+    assert cuda_kernel.cluster_qb(n_q) == (8 if n_q <= 8 else cuda_kernel.CLUSTER_QB)
