@@ -13,7 +13,9 @@ package `repro`. Phases, each of which fails the run by raising:
                nvcc per source, all started together;
   3. kernels — hold each kernel against its plain PyTorch version on the
                card, at the main paths' shapes and at edge cases (topk_sim
-               on both its routes, cluster and split, and flash attention
+               on each of its routes that can take the inputs, cluster,
+               split and wgmma, the wgmma route also bitwise against the
+               split route, and flash attention
                on both its kernels: wgmma for bf16, fma for float32 and for
                bf16 with hd % 8 != 0, each launch checked against the route
                `topk_route` or `flash_route` gives; the SSD scan also on
@@ -30,8 +32,10 @@ package `repro`. Phases, each of which fails the run by raising:
                through `SemanticRouter(backend="fused")`, bare and with an
                adapter, in batches of 8 and of 64; re-rank at the native
                2,413 tools; a CAS table swap. Results must equal those of
-               the dense backend on the card, and the kernel's launch count
-               must rise during this phase on both topk_sim routes;
+               the dense backend on the card, and topk_sim must launch on
+               the route `topk_route` gives each batch size (wgmma for the
+               100,000-tool batches of WGMMA_MIN_Q queries and more, split
+               below that) and on the cluster route for the re-ranker;
   5. pool    — serve 16 routed requests (prompts of 1,100-2,048 tokens, 16
                new tokens each) through `ContinuousBatcher` over full-width
                hymba-1.5b in bf16 (wq, wk, wv at a d_model fan-in) with 4
@@ -48,8 +52,11 @@ package `repro`. Phases, each of which fails the run by raising:
   6. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
-               alternating rounds of 200 calls, medians; its two routes as
-               the table grows; the host dispatch of one small call
+               alternating rounds of 200 calls, medians, at 100,000 tools
+               with the wgmma and split routes forced in the same turns,
+               each pass's profiler device time and the rows rescored a
+               call; its routes as the table grows and, at 100,000 tools,
+               as the batch grows; the host dispatch of one small call
                against its device time; flash attention's two kernels on
                the same bf16 inputs, in turns; each SSD scan phase's device
                time); per-phase p50 and per-batch p50/p99 of the gateway.
@@ -75,6 +82,7 @@ from pathlib import Path
 # kernel's bound counts its work at the rate the card could do it)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
 PEAK_BF16_FLOP_PER_S = 989e12
 NEAR_TIE = 1e-5  # adjacent plain-version scores closer than this may swap (clone
 # tables; the cluster route's summation order against cuBLAS's)
@@ -93,7 +101,9 @@ POOL_REQUESTS, POOL_SLOTS, POOL_NEW_TOKENS = 16, 4, 16
 POOL_PROMPT_LENS = (1100, 2048)  # inclusive; all past hymba's 1,024-token window
 CAPTURE_LEN = 2048  # the prompt whose layer inputs the kernels are checked at
 TIME_ROUNDS = 5  # rounds in turns of a small kernel's timing (one sample moves +-20%)
-CROSSOVER_T = (2413, 4096, 6144, 8192, 12288)  # cluster vs split route
+CROSSOVER_T = (2413, 4096, 6144, 8192, 12288)  # cluster vs split vs wgmma route
+CROSSOVER_Q = (1, 8, 9, 16, 33, 64)  # split vs wgmma route at 100,000 tools, k = 5
+CROSSOVER_K = (5, 10, 16, 25)  # and as k grows, at Q = 16 and 64
 
 
 def log(*parts) -> None:
@@ -179,10 +189,17 @@ def bound(nbytes: float, flops: float, peak_flop_per_s: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def topk_bound(n_q: int, n_t: int, d: int, k: int):
-    """Each input read once, the outputs written once; 2QTD float32 FLOPs."""
-    return bound(4 * (n_q * d + n_t * d) + n_q * k * (4 + 8), 2 * n_q * n_t * d,
-                 PEAK_F32_FLOP_PER_S)
+def topk_bound(n_q: int, n_t: int, d: int, k: int, rescored: int = 0):
+    """{"cuda_cores": (ms, by), "tensor_cores": (ms, by)}: each input read
+    once, the outputs written once; 2QTD FLOPs as float32 FMAs, or as TF32
+    products on the tensor cores plus the float32 rescore of `rescored`
+    (query, row) pairs (2D FLOPs each), as this run's data needed."""
+    nbytes = 4 * (n_q * d + n_t * d) + n_q * k * (4 + 8)
+    flops = 2 * n_q * n_t * d
+    t_ops = (flops / PEAK_TF32_FLOP_PER_S + 2 * d * rescored / PEAK_F32_FLOP_PER_S) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"cuda_cores": bound(nbytes, flops, PEAK_F32_FLOP_PER_S),
+            "tensor_cores": (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")}
 
 
 def flash_bound(q, k, v, causal: bool, window: int, q_offset: int):
@@ -352,15 +369,18 @@ def main() -> int:
         """Kernel against plain version: scores within SCORE_ATOL; indices
         exactly equal, or (clone tables, `tie` given) equal up to
         reordering inside adjacent plain-version scores closer than `tie`.
-        The launch must take `route` (forced) or the one `topk_route` gives."""
+        The launch must take `route` (forced) or the one `topk_route` gives.
+        Returns the kernel's (scores, indices)."""
         nonlocal max_err
         want = route or topk_kernel.topk_route(q.shape[0], t.shape[0], q.shape[1], k, t, q)
         before = dict(topk_kernel.launches_by_route)
+        topk_kernel.reset_rescored()
         ks, ki = topk_kernel.topk_sim_cuda(q, t, k, route=route)
         torch.cuda.synchronize()
         n_launch = 1 if want == "cluster" else 2
         if topk_kernel.launches_by_route != {**before, want: before[want] + n_launch}:
             raise AssertionError(f"{name}: topk_sim not launched on the {want} route")
+        n_rescored = topk_kernel.rescored() if want == "wgmma" else None
         rs, ri = topk_sim_ref(q, t, k)
         if tie is None and want == "cluster":
             # the cluster kernel sums each product over a tree of lanes, the
@@ -376,23 +396,44 @@ def main() -> int:
             rule = f"rows reordered inside near-ties (<{tie:g}): {n_tie_rows}"
         max_err = max(max_err, err)
         checks.append(dict(case=name, route=want, shape=[q.shape[0], t.shape[0], q.shape[1], k],
-                           max_abs_err=err, near_tie_rows=n_tie_rows))
+                           max_abs_err=err, near_tie_rows=n_tie_rows, rescored=n_rescored))
         log(f"kernel check {name} {want} Q={q.shape[0]} T={t.shape[0]} D={q.shape[1]} k={k}: "
-            f"max|ds|={err:.3g}, {rule}")
+            f"max|ds|={err:.3g}, {rule}"
+            + (f"; {n_rescored} (query, row) pairs rescored" if want == "wgmma" else ""))
+        return ks, ki
 
-    # each shape on the route topk_route gives it, then on the other where
-    # the cluster kernel can take it; D = 130 cannot (D % 4 != 0)
+    def check_routes(name, q, t, k, tie=None):
+        """`check` on the route topk_route gives, then forced on every other
+        route that can take the inputs; the wgmma route's scores and indices
+        must equal the split route's bitwise."""
+        chosen = topk_kernel.topk_route(q.shape[0], t.shape[0], q.shape[1], k, t, q)
+        got = {chosen: check(name, q, t, k, tie=tie)}
+        for r in topk_kernel.ROUTES:
+            if r != chosen and topk_kernel.can_take(r, q, t, k):
+                got[r] = check(name, q, t, k, tie=tie, route=r)
+        if "wgmma" in got:
+            (ws, wi), (ss, si) = got["wgmma"], got["split"]
+            if not (torch.equal(ws, ss) and torch.equal(wi, si)):
+                raise AssertionError(f"{name}: the wgmma route is not bitwise the split route")
+            log(f"kernel check {name} Q={q.shape[0]} T={t.shape[0]} k={k}: wgmma route "
+                f"bitwise equal to the split route")
+
+    # each shape on the route topk_route gives it, then forced on the others
+    # that can take it; D = 130 can only take the split route (D % 4 != 0)
     for n_q, n_t, d, k in [(1, 2413, 384, 5), (8, 2413, 384, 25), (64, 2413, 384, 25),
                            (33, 2047, 384, 128), (64, 300, 384, 5),
-                           (8, topk_kernel.CLUSTER_MAX_T, 384, 25), (64, 100_000, 384, 25),
+                           (8, topk_kernel.CLUSTER_MAX_T, 384, 25),
+                           (1, topk_kernel.CLUSTER_MAX_T + 1, 384, 32), (64, 100_000, 384, 25),
                            (128, 100_000, 384, 5), (33, 100_003, 384, 25),
-                           (64, 100_000, 384, 5), (5, 300, 64, 128), (8, 2413, 130, 25)]:
+                           (8, 100_000, 384, 5), (16, 100_003, 384, 1),
+                           (64, 100_000, 384, 5), (64, 100_000, 384, topk_kernel.WGMMA_MAX_K),
+                           (5, 300, 64, 128), (8, 2413, 130, 25)]:
         q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
-        check("random", q, t, k)
-        if d % 4 == 0:
-            chosen = topk_kernel.topk_route(n_q, n_t, d, k, t, q)
-            check("random", q, t, k, route="split" if chosen == "cluster" else "cluster")
-        elif topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "split":
+        check_routes("random", q, t, k)
+        if (n_q, n_t, k) == (33, 100_003, 25):  # all-zero rows, as the gateway pads a batch
+            q = torch.cat([q[:24], torch.zeros((8, d), device=dev)]).contiguous()
+            check_routes("zero-padded", q, t, 5)
+        if d % 4 != 0 and topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "split":
             raise AssertionError(f"D={d} must take the split route")
     # one-hot rows tiled so that bitwise ties cross every tile, slice and
     # split boundary: lowest-index-first is the only right order
@@ -403,6 +444,8 @@ def main() -> int:
         for n_q, k in [(40, 8), (4, 128)]:
             q = unit_rows(n_q, 128, gen)
             for route in topk_kernel.ROUTES:
+                if not topk_kernel.can_take(route, q, ties, k):
+                    continue
                 ks, ki = topk_kernel.topk_sim_cuda(q, ties, k, route=route)
                 rs, ri = topk_sim_ref(q, ties, k)
                 if not torch.equal(ki, ri):
@@ -602,8 +645,9 @@ def main() -> int:
         f"scaled to {big.shape[0]} tools ({big.nbytes / 1e6:.1f} MB f32) in "
         f"{time.perf_counter() - t0:.1f} s")
     # clone tables: near-ties within 1e-5 are real here, so the rule applies
-    check("clones", torch.from_numpy(q_all[:64]).to(dev), torch.from_numpy(big).to(dev),
-          25, tie=NEAR_TIE)
+    for n_q, k in [(64, 25), (64, 5), (8, 5)]:
+        check_routes("clones", torch.from_numpy(q_all[:n_q]).to(dev),
+                     torch.from_numpy(big).to(dev), k, tie=NEAR_TIE)
 
     def records(n):
         nt = bench.n_tools
@@ -670,6 +714,7 @@ def main() -> int:
     runs, profiled = [], []
     topk_kernel.launches = 0  # main path starts: count only its launches
     topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+    topk_kernel.reset_rescored()
     t_serve = time.perf_counter()
     for cfg in ("bare", "adapter", "rerank"):
         table_db = db_native if cfg == "rerank" else db
@@ -718,12 +763,20 @@ def main() -> int:
     dense.close()
     main_launches = topk_kernel.launches
     serve_routes = dict(topk_kernel.launches_by_route)
+    serve_rescored = topk_kernel.rescored()
     log(f"serving path: {time.perf_counter() - t_serve:.1f} s, topk_sim launches "
-        f"{main_launches}, by route " + json.dumps(serve_routes))
-    # the 100,000-tool batches take the split route, the re-ranker's
+        f"{main_launches}, by route " + json.dumps(serve_routes) + f"; {serve_rescored} "
+        f"(query, row) pairs rescored in float32 on the wgmma route")
+    # the 100,000-tool batches take the route topk_route gives their size
+    # (wgmma from WGMMA_MIN_Q queries up, split below), the re-ranker's
     # native 2,413 tools the cluster route
-    if main_launches == 0 or not all(serve_routes.values()):
-        raise AssertionError(f"the serving path launched topk_sim {serve_routes}")
+    sizes = {bs for bs in BATCH_SIZES} | {bench.n_queries % bs for bs in BATCH_SIZES} - {0}
+    t_big = torch.from_numpy(big[:1]).to(dev)
+    want_routes = {topk_kernel.topk_route(n, N_TOOLS, big.shape[1], 5, t_big, t_big)
+                   for n in sizes} | {"cluster"}
+    if main_launches == 0 or {r for r, n in serve_routes.items() if n} != want_routes:
+        raise AssertionError(f"the serving path launched topk_sim {serve_routes}, expected "
+                             f"the routes {sorted(want_routes)}")
 
     # where a batch's time goes on the card: device time per batch, by
     # kernel, and the host-clock time of the same 20 batches (the profiler
@@ -829,7 +882,7 @@ def main() -> int:
               "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers * len(ssd_kernel.PHASES),
               "topk_sim": len(routed)}
     expect_routes = {"wgmma": POOL_REQUESTS * pool_cfg.n_layers, "fma": 0}
-    expect_topk = {"cluster": len(routed), "split": 0}
+    expect_topk = {"cluster": len(routed), "split": 0, "wgmma": 0}
     if (pool_launches != expect or pool_flash_routes != expect_routes
             or pool_topk_routes != expect_topk or len(prefill_ms) != POOL_REQUESTS):
         raise AssertionError(f"pool: launches {pool_launches}, flash by route "
@@ -923,6 +976,31 @@ def main() -> int:
         + json.dumps({k: round(v, 3) for k, v in own.items()}))
 
     # ----------------------------------------------------------------- 6. times
+    def served_call_ms(q_np, table, k, calls=50):
+        """One call as FusedBackend makes it (queries up from numpy, the
+        kernel, both results down), on each large-table route in turns: host
+        clock of the call alone and after a 2 ms idle gap, as batches arrive,
+        and the host dispatch (to the wrapper's return); medians over rounds
+        of `calls`."""
+        out = {}
+        for _ in range(TIME_ROUNDS):
+            for r in ("wgmma", "split"):
+                for gap in (0.0, 0.002):
+                    ms, dispatch = [], []
+                    for _ in range(calls):
+                        torch.cuda.synchronize()
+                        time.sleep(gap)
+                        t = time.perf_counter()
+                        got = topk_kernel.topk_sim_cuda(torch.from_numpy(q_np).to(dev), table, k,
+                                                        route=r)
+                        dispatch.append(time.perf_counter() - t)
+                        got[0].cpu(), got[1].cpu()
+                        ms.append(time.perf_counter() - t)
+                    name = f"{r}{'_after_gap' if gap else ''}"
+                    out.setdefault(name, []).append(float(np.median(ms)) * 1e3)
+                    out.setdefault(f"{r}_dispatch", []).append(float(np.median(dispatch)) * 1e3)
+        return {name: float(np.median(v)) for name, v in out.items()}
+
     table_big = torch.from_numpy(big).to(dev)
     table_native = torch.from_numpy(native).to(dev)
     shapes = []
@@ -931,26 +1009,67 @@ def main() -> int:
         q = torch.from_numpy(q_all[:n_q]).to(dev)
         n_t, d = table.shape
         route = topk_kernel.topk_route(n_q, n_t, d, k, table, q)
-        rounds = alternating({
-            "kernel": lambda: topk_kernel.topk_sim_cuda(q, table, k),
-            "library": lambda: torch.topk(q @ table.T, k)})
-        ms, lib = (float(np.median(rounds[key])) for key in ("kernel", "library"))
+        fns = {"kernel": lambda: topk_kernel.topk_sim_cuda(q, table, k),
+               "library": lambda: torch.topk(q @ table.T, k)}
+        if table is table_big:  # both large-table routes, forced, in the same turns
+            for r in ("wgmma", "split"):
+                fns[r] = functools.partial(topk_kernel.topk_sim_cuda, q, table, k, route=r)
+        rounds = alternating(fns)
+        med = {name: float(np.median(t)) for name, t in rounds.items()}
+        ms, lib = med["kernel"], med["library"]
         plain = cuda_ms(lambda: topk_sim_ref(q, table, k))
-        bound, bound_by = topk_bound(n_q, n_t, d, k)
+        extra, resc = {}, 0
+        if table is table_big:
+            topk_kernel.reset_rescored()
+            topk_kernel.topk_sim_cuda(q, table, k, route="wgmma")
+            resc = topk_kernel.rescored()
+            # device time per launch of each pass, for both routes
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for r in ("wgmma", "split"):
+                    for _ in range(20):
+                        fns[r]()
+                torch.cuda.synchronize()
+            passes = {name: e.self_device_time_total / 1e3 / e.count
+                      for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      for name in ("topk_sim_wgmma", "topk_sim_partial", "topk_sim_merge")
+                      if name in e.key}
+            below = {r: sum(a < b for a, b in zip(rounds["wgmma"], rounds[r]))
+                     for r in ("split", "library")}
+            served = served_call_ms(q_all[:n_q], table, k)
+            extra = dict(route_ms={r: med[r] for r in ("wgmma", "split")},
+                         wgmma_below_rounds=below, rescored_per_call=resc,
+                         device_ms_per_launch=passes, served_call_ms=served)
+        bounds = topk_bound(n_q, n_t, d, k, rescored=resc)
+        bound_ms, bound_by = bounds["tensor_cores" if route == "wgmma" else "cuda_cores"]
         shapes.append(dict(shape=[n_q, n_t, d, k], route=route, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bound, bound_by=bound_by,
-                           rounds_ms=rounds))
+                           library_ms=lib, bound_ms=bound_ms, bound_by=bound_by,
+                           bound_cuda_cores_ms=bounds["cuda_cores"][0],
+                           bound_tensor_cores_ms=bounds["tensor_cores"][0], rounds_ms=rounds,
+                           **extra))
         log(f"time topk_sim Q={n_q} T={n_t} D={d} k={k} ({route}): kernel median {ms:.4f} ms "
             f"(rounds " + ", ".join(f"{t:.4f}" for t in rounds["kernel"])
             + f"), torch.topk(q@t.T) median {lib:.4f} ms (rounds "
             + ", ".join(f"{t:.4f}" for t in rounds["library"])
-            + f"), kernel below it in {sum(a < b for a, b in zip(*rounds.values()))} of "
-            f"{TIME_ROUNDS} rounds; plain {plain:.4f} ms, bound {bound:.4f} ms ({bound_by}) "
-            f"on {card}")
+            + f"), kernel below it in {sum(a < b for a, b in zip(rounds['kernel'], rounds['library']))} "
+            f"of {TIME_ROUNDS} rounds; plain {plain:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}; "
+            f"CUDA cores {bounds['cuda_cores'][0]:.4f}, tensor cores "
+            f"{bounds['tensor_cores'][0]:.4f}) on {card}")
+        if extra:
+            log(f"time topk_sim Q={n_q} T={n_t} k={k}: wgmma route median {med['wgmma']:.4f} ms "
+                f"(rounds " + ", ".join(f"{t:.4f}" for t in rounds["wgmma"]) + f"), split route "
+                f"median {med['split']:.4f} ms (rounds "
+                + ", ".join(f"{t:.4f}" for t in rounds["split"]) + f"); wgmma below split in "
+                f"{extra['wgmma_below_rounds']['split']} and below torch.topk in "
+                f"{extra['wgmma_below_rounds']['library']} of {TIME_ROUNDS} rounds; "
+                f"{resc} (query, row) pairs rescored a call; device ms per launch "
+                + json.dumps({key: round(v, 4) for key, v in passes.items()}) + f" on {card}")
+            log(f"served call topk_sim Q={n_q} T={n_t} k={k} (queries up, kernel, results "
+                f"down; host clock, medians of {TIME_ROUNDS} rounds of 50 in turns): "
+                + json.dumps({key: round(v, 4) for key, v in served.items()}) + f" on {card}")
     head = shapes[1]  # the bare path's full batch: Q=64 over 100,000 tools
 
-    # the cluster route against the split route as the table grows (the
-    # crossover sets CLUSTER_MAX_T)
+    # the routes as the table grows (the crossover sets CLUSTER_MAX_T) and,
+    # at 100,000 tools, as the batch grows (it sets WGMMA_MIN_Q)
     crossover = []
     for n_q in (8, 64):
         q = torch.from_numpy(q_all[:n_q]).to(dev)
@@ -962,8 +1081,20 @@ def main() -> int:
             row = dict(n_q=n_q, n_t=n_t, k=25, **{f"{r}_ms": float(np.median(t))
                                                   for r, t in rounds.items()})
             crossover.append(row)
-            log(f"crossover topk_sim Q={n_q} T={n_t} k=25: cluster {row['cluster_ms']:.4f} ms, "
-                f"split {row['split_ms']:.4f} ms (medians of 3 rounds in turns) on {card}")
+            log(f"crossover topk_sim Q={n_q} T={n_t} k=25: " + ", ".join(
+                f"{r} {row[r + '_ms']:.4f} ms" for r in topk_kernel.ROUTES)
+                + f" (medians of 3 rounds in turns) on {card}")
+    for n_q, k in ([(n_q, 5) for n_q in CROSSOVER_Q]
+                   + [(n_q, k) for n_q in (16, 64) for k in CROSSOVER_K if k != 5]):
+        q = torch.from_numpy(q_all[:n_q]).to(dev)
+        rounds = alternating({r: functools.partial(topk_kernel.topk_sim_cuda, q, table_big, k,
+                                                   route=r)
+                              for r in ("wgmma", "split")}, rounds=3, iters=100)
+        row = dict(n_q=n_q, n_t=N_TOOLS, k=k, **{f"{r}_ms": float(np.median(t))
+                                                 for r, t in rounds.items()})
+        crossover.append(row)
+        log(f"crossover topk_sim Q={n_q} T={N_TOOLS} k={k}: wgmma {row['wgmma_ms']:.4f} ms, "
+            f"split {row['split_ms']:.4f} ms (medians of 3 rounds in turns) on {card}")
     # one small call: host dispatch against device time. Host: the host
     # clock of 200 back-to-back calls (the card keeps up, so this is the
     # time to issue one); device: the profiler's kernel time per launch
@@ -1046,10 +1177,14 @@ def main() -> int:
         replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=main_launches,
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
-        shape=head["shape"], shapes=shapes, checks=checks,
-        index_agreement="exact except reordering inside near-ties (rows counted in checks)",
+        bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
+        bound_tensor_cores_ms=head["bound_tensor_cores_ms"],
+        shape=head["shape"], route_of_shape=head["route"], shapes=shapes, checks=checks,
+        index_agreement="exact except reordering inside near-ties (rows counted in checks); "
+                        "the wgmma route bitwise equal to the split route",
         launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes},
+        rescored={"serve": serve_rescored},
         crossover=crossover, host_vs_device=host_split,
     ), dict(
         name="flash_attention", route="cuda",

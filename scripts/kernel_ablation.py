@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's cluster-route topk_sim and three-phase ssd_scan kernels
-with one part removed at a time, on one NVIDIA card.
+"""Time the port's cluster-route and wgmma-route topk_sim and three-phase
+ssd_scan kernels with one part removed at a time, on one NVIDIA card.
 
     python3 scripts/kernel_ablation.py
 
@@ -9,8 +9,9 @@ It copies `src/repro_torch/kernels/csrc/{topk_sim,ssd_scan}.cu`, in each
 copy sets one loop bound or condition so that one part does no work, builds
 every copy with nvcc into its own library under the ignored
 `src/repro_torch/kernels/build/` (all builds at once), and times each at
-the main paths' shapes: topk_sim at Q=8 and Q=64 over 2,413
-rows and Q=8 over 8,192 (k=25, D=384), and each scan phase at hymba-1.5b's
+the main paths' shapes: topk_sim's cluster route at Q=8 and Q=64 over
+2,413 rows and Q=8 over 8,192 (k=25, D=384), its wgmma route's pass 1 at
+Q=8 and Q=64 over 100,000 rows (k=5, D=384), and each scan phase at hymba-1.5b's
 layer shape (x 1x2048x50x64 bf16, N 16), as the profiler's device time per
 launch (a launch alone is shorter than its host dispatch, so CUDA events
 around back-to-back calls would time the host). A part's cost reads as the full
@@ -42,6 +43,27 @@ TOPK_PARTS = {
                    "for (int ql = warp; ql < 0; ql += CWARPS) {")],
     "no merge": [("for (int ql = rank; ql < nq; ql += cs) {",
                   "for (int ql = rank; ql < 0; ql += cs) {")],
+}
+WGMMA_PARTS = {
+    "full": [],
+    "no filter": [("if (r < len && q < q_hi && !(a < thr[h & 1])) {", "if (false) {")],
+    "no compaction": [
+        ("          cand[q * CAND + slot] = pack_key(",
+         "          if (slot < CAND) cand[q * CAND + slot] = pack_key("),
+        ("if (c <= CAND - ROWS) continue;  // warp-uniform", "if (true) continue;"),
+        ("    const int c0 = cnt[n];", "    const int c0 = min(cnt[n], CAND);"),
+    ],
+    "no end selection": [
+        ("    const int c = prune(n, c0, fmaxf(vb[n], kth_candidate(n, c0)) - 2.f * margin(n));",
+         "    const int c = c0;")],
+    "no row norms": [("      for (int u = 0; u < 4; ++u) {  // rows past T and columns past D read as zeros",
+                      "      for (int u = 0; u < 0; ++u) {")],
+    "no rescore": [("for (int p = wt; p < total; p += 128) {\n      int n, i;",
+                    "for (int p = wt; p < 0; p += 128) {\n      int n, i;")],
+    "no exact offers": [
+        ("      offer(lists + n * k, k, stage + warp * 128, c, lane, [&](int i) { return cand[n * CAND + i]; });\n"
+         "      if (lane == 0) {\n        cnt[n] = 0;",
+         "      if (lane == 0) {\n        cnt[n] = 0;")],
 }
 SSD_PARTS = {
     "full": [],
@@ -103,6 +125,7 @@ def main() -> int:
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
 
     jobs = [("topk_sim", v, p) for v, p in TOPK_PARTS.items()]
+    jobs += [("topk_sim", f"wgmma {v}", p) for v, p in WGMMA_PARTS.items()]
     jobs += [("ssd_scan", v, p) for v, p in SSD_PARTS.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: build(*job), jobs))
@@ -141,10 +164,30 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"launch failed: {rc}")
 
+    big = unit(100_000, 384)
+    counter = torch.zeros(1, dtype=torch.int64, device=dev)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def wgmma_call(lib, n_q, k):
+        n, n_split, rows, stages = topk_kernel.wgmma_plan(n_q, 100_000, 384, k, n_sms)
+        coef, abs_coef = topk_kernel.margin_coefs(384)
+        part = torch.empty((n_q, n_split, k), dtype=torch.int64, device=dev)
+        rc = lib.topk_sim_wgmma_launch(0, n, queries.data_ptr(), big.data_ptr(), n_q, 100_000,
+                                       384, k, n_split, rows, stages, coef, abs_coef, NEG_INF,
+                                       part.data_ptr(), counter.data_ptr(), stream)
+        if rc:
+            raise RuntimeError(f"launch failed: {rc}")
+
     for (kernel, variant, _), so in zip(jobs, libs):
         lib = ctypes.CDLL(str(so))
         getattr(lib, f"{kernel}_error_string").restype = ctypes.c_char_p
-        if kernel == "topk_sim":
+        if variant.startswith("wgmma"):
+            topk_kernel._bind(lib)
+            times = [f"Q={n_q} {device_ms(lambda: wgmma_call(lib, n_q, 5), 'topk_sim_wgmma'):.4f} ms"
+                     for n_q in (8, 64)]
+            print(f"topk_sim wgmma pass 1 T=100000 k=5, {variant[6:]}: " + ", ".join(times),
+                  flush=True)
+        elif kernel == "topk_sim":
             topk_kernel._bind(lib)
             times = []
             for n_q, n_t in ((8, 2413), (64, 2413), (8, 8192)):

@@ -72,7 +72,9 @@
 //     report (`build_info["log"]`, printed by chip_smoke.py) shows the
 //     count and any spill.
 //   - Build: raw PTX through inline asm, no CuTe; cuTensorMapEncodeTiled is
-//     taken from the runtime's driver entry point, so no -lcuda.
+//     taken from the runtime's driver entry point, so no -lcuda. The TMA,
+//     descriptor and wait helpers live in tma_wgmma.cuh, shared with
+//     topk_sim.cu's wgmma route.
 //
 // fma design. One block of 256 threads per (64 query rows, head). The block
 // keeps its q tile in shared memory and streams 64-row k/v tiles through it,
@@ -91,6 +93,7 @@
 #include <cstdint>
 
 #include "mbarrier.cuh"
+#include "tma_wgmma.cuh"  // TMA loads, wgmma descriptors and waits, the tensor-map encoder
 
 namespace {
 
@@ -306,43 +309,6 @@ constexpr int BOX = 64;                  // bf16 columns of one 128B-swizzled bo
 constexpr int ROW_BYTES = BOX * 2;       // 128
 constexpr int SUB_Q = BQ * ROW_BYTES;    // one 64-column q box: 16 KB
 constexpr int SUB_KV = BK * ROW_BYTES;   // one 64-column k or v box: 16 KB
-
-// one box of a 3-D tensor map into shared memory; completes on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
-// leading and stride byte offsets (all in 16-byte units), layout 1 = 128B
-// swizzle, base offset 0 (every tile is 1024-byte aligned)
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving reads or writes of accumulators across the
-// asynchronous product (each register is an operand of an empty asm)
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -601,26 +567,6 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r1) * hd + c) =
           __floats2bfloat162_rn(oacc[i * 4 + 2] / d1, oacc[i * 4 + 3] / d1);
   }
-}
-
-// cuTensorMapEncodeTiled, taken from the driver through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled load_encode_tiled() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-  const cudaError_t err =
-      cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-  return reinterpret_cast<EncodeTiled>(fn);
 }
 
 // a bf16 tensor [rows, seq, hd], contiguous, read as [64 x BQ] (= [64 x BK])

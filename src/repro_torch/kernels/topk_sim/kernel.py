@@ -9,24 +9,31 @@ interface (`kernels/nvcc.py`), cached under `kernels/build/` by a hash of
 the source, and loads it with ctypes. Nothing here runs at import: the CPU
 tests import this module on machines with no nvcc and no card.
 
-The source holds two routes, and `topk_route` picks one before launch from
-shape and alignment: "cluster" (one launch; a thread-block cluster per
+The source holds three routes, and `topk_route` picks one before launch
+from shape and alignment: "cluster" (one launch; a thread-block cluster per
 query block streams the table through shared memory with bulk copies and
 merges its lists in distributed shared memory) for tables of up to
-`CLUSTER_MAX_T` rows, and "split" (two launches: table slices over the
-whole card, then a merge through a scratch tensor) for larger tables and
-for inputs the bulk copies cannot take. Neither falls back to the other.
+`CLUSTER_MAX_T` rows; "wgmma" (two launches: TF32 products on the tensor
+cores fed by TMA filter the rows, the survivors are rescored in exact
+float32, then the split route's merge) for larger tables with
+WGMMA_MIN_Q <= Q <= 64 and Q * k <= WGMMA_MAX_QK (forced, it takes
+Q <= 64 and k <= 32); and "split" (two launches: float32 FMAs over table
+slices on the whole card, then a merge through a scratch tensor) for the
+rest and for inputs the bulk copies cannot take. None falls back to
+another. The wgmma route returns bitwise what the split route returns.
 
-`topk_sim_cuda` checks its inputs, allocates the outputs (and the split
-route's scratch) with `torch.empty`, and launches on the current stream.
+`topk_sim_cuda` checks its inputs, allocates the outputs (and the two-pass
+routes' scratch) with `torch.empty`, and launches on the current stream.
 Each kernel launch adds one to `launches` and to `launches_by_route[route]`,
 so a run can show that its main path went through the kernels, and through
-which. A launch the runtime refuses, or a cluster that cannot be resident,
-raises.
+which; the wgmma route also adds its rescored (query, row) pairs to a
+counter on the card (`rescored()`). A launch the runtime refuses, a tensor
+map that fails to encode, or a cluster that cannot be resident, raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -39,15 +46,24 @@ __all__ = [
     "CLUSTER_MAX_T",
     "LIBRARY",
     "ROUTES",
+    "WGMMA_MAX_K",
+    "WGMMA_MAX_QK",
+    "WGMMA_MIN_Q",
     "build",
     "build_info",
+    "can_take",
     "cluster_qb",
     "cluster_stages",
     "launches",
     "launches_by_route",
+    "margin_coefs",
+    "rescored",
+    "reset_rescored",
     "split_plan",
     "topk_route",
     "topk_sim_cuda",
+    "wgmma_plan",
+    "wgmma_smem_bytes",
 ]
 
 # the kernel's own limits and tile sizes; they must match topk_sim.cu
@@ -70,11 +86,29 @@ SMEM_OPT_IN = 227 * 1024
 # from chip_smoke.py's and scripts/kernel_ablation.py's timing
 CLUSTER_MAX_T = 6144
 CLUSTER_QB = 16
-ROUTES = ("cluster", "split")
+# the wgmma route's
+WROWS = 64  # table rows per tile (wgmma's M)
+WBOXW = 32  # float32 columns of one 128B-swizzled box
+WBOX_BYTES = WROWS * 128
+WCAND = 96  # TF32 candidates a query holds: room for a tile's 64 rows
+WGMMA_MAX_Q = 64
+WGMMA_MAX_K = 32  # the first filter threshold's k-th of 32 row-group maxima
+WMIN_STAGES, WMAX_STAGES = 4, 24
+# what topk_route sends to the wgmma route, from chip_smoke.py's crossover
+# timing on an H100 over 100,000 rows: at k = 5 it lost to the split route
+# at Q <= 8 and won from Q = 9; its list work grows with Q * k: it won at
+# Q * k = 320 (64 x 5) and 256 (16 x 16), lost by 4-7% at 400 (16 x 25),
+# came within 3% either way at 640 (64 x 10), and lost from 1,024 (64 x 16)
+WGMMA_MIN_Q = 9
+WGMMA_MAX_QK = 320
+ROUTES = ("cluster", "split", "wgmma")
 
-launches = 0  # kernel launches since the last reset (1 a call on "cluster", 2 on "split")
+launches = 0  # kernel launches since the last reset (1 a call on "cluster", 2 on the others)
 launches_by_route = dict.fromkeys(ROUTES, 0)  # the same launches, by route
 _cluster_size: Dict[tuple, int] = {}  # (device, qb, d, k, stages) -> 16 or 8
+# device index -> uint64 counter on the card: (query, row) pairs the wgmma
+# route rescored in float32
+_rescored: Dict[int, torch.Tensor] = {}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -93,6 +127,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ci, ci, ci, vp, vp, ci, ci, ci, ci, ci, ctypes.c_float, vp, vp, vp,
     ]
     lib.topk_sim_cluster_launch.restype = ci
+    lib.topk_sim_wgmma_launch.argtypes = [
+        ci, ci, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, ctypes.c_float,
+        ctypes.c_float, vp, vp, vp,
+    ]
+    lib.topk_sim_wgmma_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("topk_sim", _bind)
@@ -137,6 +176,7 @@ def cluster_smem_bytes(qb: int, d: int, k: int, stages: int) -> int:
             + 8 * (CWARPS * MAX_K + qb * k + MAX_CS * k))
 
 
+@functools.lru_cache(maxsize=None)
 def cluster_stages(qb: int, d: int, k: int) -> int:
     """The deepest ring (<= MAX_STAGES) that fits a block; 0 if not two."""
     for stages in range(MAX_STAGES, 1, -1):
@@ -154,15 +194,105 @@ def _cluster_takes(n_q: int, d: int, k: int, tensors) -> bool:
             and cluster_stages(cluster_qb(n_q), d, k) >= 2)
 
 
+def wgmma_n(n_q: int) -> int:
+    """The wgmma route's N: Q padded to 8, 16, 32 or 64."""
+    return next(n for n in (8, 16, 32, 64) if n_q <= n)
+
+
+def _wgmma_warps(n: int) -> int:
+    """Consumer warps of a wgmma-route block for N queries: one warpgroup
+    for N = 8, two (N / 2 queries each) above."""
+    return 4 if n == 8 else 8
+
+
+def wgmma_smem_bytes(n: int, d: int, k: int, stages: int) -> int:
+    """Dynamic shared memory of one wgmma-route block (as topk_sim.cu)."""
+    nb = _cdiv(d, WBOXW)
+    return (1024 + nb * n * 128 + stages * (WBOX_BYTES + 16)
+            + 8 * (n * (k + WCAND) + _wgmma_warps(n) * 128) + 20 * n + 48)
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_stages(n: int, d: int, k: int) -> int:
+    """The deepest ring of table boxes (<= WMAX_STAGES) that fits a block;
+    0 if not WMIN_STAGES."""
+    for stages in range(WMAX_STAGES, WMIN_STAGES - 1, -1):
+        if wgmma_smem_bytes(n, d, k, stages) <= SMEM_OPT_IN:
+            return stages
+    return 0
+
+
+def wgmma_plan(n_q: int, n_t: int, d: int, k: int, n_sms: int) -> Tuple[int, int, int, int]:
+    """(N, n_split, rows_per_split, stages) for the wgmma route's pass 1:
+    about one block per SM, each a slice of whole 64-row tiles, and
+    n_split * k candidates per query within what pass 2 merges."""
+    n_split = max(1, min(n_sms, MAX_CAND // k, _cdiv(n_t, WROWS)))
+    rows = _cdiv(_cdiv(n_t, n_split), WROWS) * WROWS
+    n = wgmma_n(n_q)
+    return n, _cdiv(n_t, rows), rows, wgmma_stages(n, d, k)
+
+
+def _wgmma_takes(n_q: int, d: int, k: int, tensors) -> bool:
+    """Whether the wgmma kernel can take these inputs at all: TMA rows of a
+    whole number of 16-byte units (D % 4 == 0) and at least one box wide,
+    16-byte aligned bases, Q <= 64, k <= 32, and a ring in shared memory."""
+    return (d % 4 == 0 and WBOXW <= d <= MAX_D and 1 <= n_q <= WGMMA_MAX_Q
+            and 1 <= k <= WGMMA_MAX_K and all(t.data_ptr() % 16 == 0 for t in tensors)
+            and wgmma_stages(wgmma_n(n_q), d, k) >= WMIN_STAGES)
+
+
+def can_take(route: str, queries: torch.Tensor, table: torch.Tensor, k: int) -> bool:
+    """Whether `route`'s kernel can take these inputs (any table size): the
+    split route takes everything the wrapper accepts."""
+    n_q, d = queries.shape
+    if route == "cluster":
+        return _cluster_takes(n_q, d, k, (table, queries))
+    if route == "wgmma":
+        return _wgmma_takes(n_q, d, k, (table, queries))
+    return route == "split"
+
+
 def topk_route(n_q: int, n_t: int, d: int, k: int, table: torch.Tensor,
                queries: Optional[torch.Tensor] = None) -> str:
     """"cluster" for a table of at most CLUSTER_MAX_T rows that the cluster
     kernel can take (D % 4 == 0, 16-byte aligned table and queries, the
-    ring in shared memory); else "split"."""
+    ring in shared memory); "wgmma" for a larger one, a batch of at least
+    WGMMA_MIN_Q queries and Q * k <= WGMMA_MAX_QK (where it beat the split
+    route), if the wgmma kernel can take it (also 32 <= D, Q <= 64,
+    k <= 32); else "split"."""
     tensors = (table,) if queries is None else (table, queries)
-    if n_t <= CLUSTER_MAX_T and _cluster_takes(n_q, d, k, tensors):
-        return "cluster"
+    if n_t <= CLUSTER_MAX_T:
+        return "cluster" if _cluster_takes(n_q, d, k, tensors) else "split"
+    if (n_q >= WGMMA_MIN_Q and n_q * k <= WGMMA_MAX_QK
+            and _wgmma_takes(n_q, d, k, tensors)):
+        return "wgmma"
     return "split"
+
+
+def margin_coefs(d: int) -> Tuple[float, float]:
+    """(coef, abs_coef): the wgmma route's filter margin for a query q is
+    E = coef |q| M + abs_coef (|q| + M + 1), M a bound on the row norms
+    (the kernel takes the largest of the tiles it has seen), a bound on
+    |TF32 tensor-core score - float32 FMA-chain score| for any float32
+    inputs of depth d (the derivation is in topk_sim.cu's header)."""
+    def gamma(n: int, u: float) -> float:
+        return n * u / (1 - n * u)
+
+    tf32 = 2.0**-10  # relative error of truncating a float32 to TF32's 10 bits
+    c = (2 * tf32 + tf32 * tf32 + gamma(2 * d, 2.0**-23) * (1 + tf32) ** 2
+         + gamma(d, 2.0**-24))
+    return c * (1 + 2.0**-8) + 2.0**-20, d * 2.0**-126
+
+
+def rescored() -> int:
+    """(query, row) pairs the wgmma route has rescored in float32 since the
+    last `reset_rescored` (reads the card's counters: synchronises)."""
+    return sum(int(c.item()) for c in _rescored.values())
+
+
+def reset_rescored() -> None:
+    for c in _rescored.values():
+        c.zero_()
 
 
 def topk_sim_cuda(
@@ -194,8 +324,7 @@ def topk_sim_cuda(
         raise ValueError(f"T={n_t} does not fit the kernel's 32-bit row ids")
     if route is None:
         route = topk_route(n_q, n_t, d, k, table, queries)
-    elif route not in ROUTES or (
-            route == "cluster" and not _cluster_takes(n_q, d, k, (table, queries))):
+    elif route not in ROUTES or not can_take(route, queries, table, k):
         raise ValueError(f"route {route!r} cannot take these inputs")
     dev = queries.device
     n_sms = sm_count(dev, "topk_sim")
@@ -228,20 +357,34 @@ def topk_sim_cuda(
         launches += 1
         launches_by_route["cluster"] += 1
         return scores, idx
-    qb, n_split, rows = split_plan(n_q, n_t, k, n_sms)
-    partial = torch.empty((n_q, n_split, k), dtype=torch.int64, device=dev)
-    rc = lib.topk_sim_partial_launch(
-        dev.index, qb, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k,
-        n_split, rows, NEG_INF, partial.data_ptr(), stream,
-    )
-    LIBRARY.check(rc, "topk_sim_partial")
+    if route == "wgmma":
+        counter = _rescored.get(dev.index)
+        if counter is None:
+            counter = _rescored[dev.index] = torch.zeros(1, dtype=torch.int64, device=dev)
+        n_pad, n_split, rows, stages = wgmma_plan(n_q, n_t, d, k, n_sms)
+        coef, abs_coef = margin_coefs(d)
+        partial = torch.empty((n_q, n_split, k), dtype=torch.int64, device=dev)
+        rc = lib.topk_sim_wgmma_launch(
+            dev.index, n_pad, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k, n_split,
+            rows, stages, coef, abs_coef, NEG_INF,
+            partial.data_ptr(), counter.data_ptr(), stream,
+        )
+        LIBRARY.check(rc, "topk_sim_wgmma")
+    else:
+        qb, n_split, rows = split_plan(n_q, n_t, k, n_sms)
+        partial = torch.empty((n_q, n_split, k), dtype=torch.int64, device=dev)
+        rc = lib.topk_sim_partial_launch(
+            dev.index, qb, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k,
+            n_split, rows, NEG_INF, partial.data_ptr(), stream,
+        )
+        LIBRARY.check(rc, "topk_sim_partial")
     launches += 1
-    launches_by_route["split"] += 1
+    launches_by_route[route] += 1
     rc = lib.topk_sim_merge_launch(
         dev.index, partial.data_ptr(), n_q, n_split, k, NEG_INF,
         scores.data_ptr(), idx.data_ptr(), stream,
     )
     LIBRARY.check(rc, "topk_sim_merge")
     launches += 1
-    launches_by_route["split"] += 1
+    launches_by_route[route] += 1
     return scores, idx

@@ -7,10 +7,13 @@ only the port's dependencies. There, run it without the suite's conftest
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.data.benchmarks import scale_tool_corpus
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -92,14 +95,16 @@ def test_topk_sim_cluster_route_matches_plain(cuda_device, q, t, k):
     _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
 
 
-@pytest.mark.parametrize("route", ["cluster", "split"])
-@pytest.mark.parametrize("k", [8, 128])
+@pytest.mark.parametrize("route,k", [("cluster", 8), ("cluster", 128), ("split", 8),
+                                     ("split", 128), ("wgmma", 8),
+                                     ("wgmma", topk_kernel.WGMMA_MAX_K)])
 def test_topk_sim_routes_break_ties_at_every_boundary(cuda_device, route, k):
-    """One-hot rows tiled so bitwise ties cross every chunk, slice and
-    cluster boundary of either route: lowest index first."""
+    """One-hot rows tiled past CLUSTER_MAX_T so bitwise ties cross every
+    chunk, tile, slice and cluster boundary of each route: lowest index first."""
     base = torch.zeros((9, 128), device=cuda_device)
     base[torch.arange(9), torch.arange(9)] = 1.0
-    table = base.repeat(topk_kernel.CLUSTER_MAX_T // 9, 1).contiguous()
+    table = base.repeat(topk_kernel.CLUSTER_MAX_T // 9 + 2, 1).contiguous()
+    assert table.shape[0] > topk_kernel.CLUSTER_MAX_T
     q = _unit_rows(np.random.default_rng(2), 40, 128, cuda_device)
     ks, ki = topk_kernel.topk_sim_cuda(q, table, k, route=route)
     rs, ri = topk_sim_ref(q, table, k)
@@ -108,25 +113,138 @@ def test_topk_sim_routes_break_ties_at_every_boundary(cuda_device, route, k):
     assert torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=cuda_device)[None, :])
 
 
+def _auto_route(q, k):
+    """topk_route's choice past CLUSTER_MAX_T rows for aligned D = 384."""
+    wgmma = q >= topk_kernel.WGMMA_MIN_Q and q * k <= topk_kernel.WGMMA_MAX_QK
+    return "wgmma" if wgmma else "split"
+
+
+@functools.lru_cache(maxsize=None)
+def _wgmma_table(t):
+    """[t, 384] unit rows from a seed, made once per size (numpy, host)."""
+    return _unit_rows(np.random.default_rng(t), t, 384, "cpu")
+
+
+def _assert_wgmma_is_split(qt, tt, k):
+    """The wgmma route (two launches) returns bitwise the split route's
+    scores and indices; returns them with the rows it rescored."""
+    before = dict(topk_kernel.launches_by_route)
+    topk_kernel.reset_rescored()
+    ws, wi = topk_kernel.topk_sim_cuda(qt, tt, k, route="wgmma")
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, "wgmma": before["wgmma"] + 2}
+    n_rescored = topk_kernel.rescored()
+    ss, si = topk_kernel.topk_sim_cuda(qt, tt, k, route="split")
+    assert torch.equal(ws, ss) and torch.equal(wi, si)
+    assert qt.shape[0] * k <= n_rescored <= qt.shape[0] * tt.shape[0]
+    return ws, wi, n_rescored
+
+
+@pytest.mark.parametrize("k", [1, 5, 25, topk_kernel.WGMMA_MAX_K])
+@pytest.mark.parametrize("t", [topk_kernel.CLUSTER_MAX_T + 1, 16_384, 100_003])
+@pytest.mark.parametrize("q", [1, 8, 33, 64])
+def test_topk_sim_wgmma_route_is_bitwise_the_split_route(cuda_device, q, t, k):
+    """Tables past CLUSTER_MAX_T (6,145 and 100,003 rows end in a ragged
+    tile) take the wgmma route where it beat the split route (WGMMA_MIN_Q
+    <= Q, Q * k <= WGMMA_MAX_QK; forced elsewhere): the TF32 filter plus
+    the float32 rescore give the split route's bits, and the plain
+    version's ranking (scores within 1e-5; indices as
+    `_assert_cluster_ranking` says)."""
+    tt = _wgmma_table(t).to(cuda_device)
+    qt = _unit_rows(np.random.default_rng(q * 31 + k), q, 384, cuda_device)
+    route = _auto_route(q, k)
+    assert topk_kernel.topk_route(q, t, 384, k, tt, qt) == route
+    before = dict(topk_kernel.launches_by_route)
+    ks, ki = topk_sim(qt, tt, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, route: before[route] + 2}
+    ws, wi, _ = _assert_wgmma_is_split(qt, tt, k)
+    assert torch.equal(ks, ws) and torch.equal(ki, wi)
+    rs, ri = topk_sim_ref(qt, tt, k)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+@pytest.mark.parametrize("q,k", [(64, 25), (8, 5), (64, topk_kernel.WGMMA_MAX_K)])
+def test_topk_sim_wgmma_route_on_a_clone_table(cuda_device, q, k):
+    """A scale_tool_corpus table (100,000 rows, clones of 2,413 with 0.02
+    noise a dimension) and queries near its rows: clusters of similar
+    scores stress the filter; the result is still the split route's."""
+    rng = np.random.default_rng(7)
+    native = rng.normal(size=(2413, 384)).astype(np.float32)
+    native /= np.linalg.norm(native, axis=1, keepdims=True)
+    tt = torch.from_numpy(scale_tool_corpus(native, 100_000, seed=0)).to(cuda_device)
+    qn = native[rng.integers(0, 2413, q)] + 0.05 * rng.normal(size=(q, 384)).astype(np.float32)
+    qt = torch.from_numpy(qn / np.linalg.norm(qn, axis=1, keepdims=True)).to(cuda_device)
+    assert topk_kernel.topk_route(q, tt.shape[0], 384, k, tt, qt) == _auto_route(q, k)
+    ks, ki, n_rescored = _assert_wgmma_is_split(qt, tt, k)
+    print(f"clone table Q={q} k={k}: {n_rescored} (query, row) pairs rescored of "
+          f"{q * tt.shape[0]}")
+    rs, ri = topk_sim_ref(qt, tt, k)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+def test_topk_sim_wgmma_route_with_zero_query_rows(cuda_device):
+    """All-zero query rows, as the gateway pads a batch to a power of two:
+    every row ties at zero, the split route's answer is the lowest rows,
+    and the wgmma route gives the same bits while rescoring far fewer rows
+    than the all-tied worst case."""
+    tt = _wgmma_table(100_003).to(cuda_device)
+    qt = _unit_rows(np.random.default_rng(24), 32, 384, cuda_device)
+    qt[24:] = 0.0
+    assert topk_kernel.topk_route(32, tt.shape[0], 384, 5, tt, qt) == "wgmma"
+    ks, ki, n_rescored = _assert_wgmma_is_split(qt, tt, 5)
+    print(f"zero query rows: {n_rescored} (query, row) pairs rescored of {32 * tt.shape[0]}")
+    assert n_rescored < 8 * tt.shape[0] // 4
+    assert bool((ks[24:] == 0).all())
+    rs, ri = topk_sim_ref(qt, tt, 5)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+def test_topk_sim_wgmma_route_rejects_what_it_cannot_take(cuda_device):
+    """Forcing the wgmma route on inputs outside its reach raises before
+    any launch."""
+    t = _unit_rows(np.random.default_rng(3), topk_kernel.CLUSTER_MAX_T + 1, 384, cuda_device)
+    q = _unit_rows(np.random.default_rng(4), 8, 384, cuda_device)
+    flat = torch.zeros(t.numel() + 1, device=cuda_device)
+    before = dict(topk_kernel.launches_by_route)
+    for bad in (
+        lambda: topk_kernel.topk_sim_cuda(
+            _unit_rows(np.random.default_rng(5), 65, 384, cuda_device), t, 5, route="wgmma"),
+        lambda: topk_kernel.topk_sim_cuda(q, t, topk_kernel.WGMMA_MAX_K + 1, route="wgmma"),
+        lambda: topk_kernel.topk_sim_cuda(q[:, :130].contiguous(), t[:, :130].contiguous(), 5,
+                                          route="wgmma"),  # D % 4 != 0
+        lambda: topk_kernel.topk_sim_cuda(q[:, :16].contiguous(), t[:, :16].contiguous(), 5,
+                                          route="wgmma"),  # D under one 32-column box
+        lambda: topk_kernel.topk_sim_cuda(q, flat[1:].view(t.shape), 5, route="wgmma"),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+    assert topk_kernel.launches_by_route == before
+
+
 @pytest.mark.parametrize("case", ["d130", "misaligned", "large"])
 def test_topk_sim_split_route_takes_what_the_cluster_cannot(cuda_device, case):
-    """D % 4 != 0, a base off a 16-byte boundary and a table past
-    CLUSTER_MAX_T go to the split route, which agrees with the plain version."""
+    """D % 4 != 0, a base off a 16-byte boundary, and a table past
+    CLUSTER_MAX_T with a batch below WGMMA_MIN_Q go to the split route,
+    which agrees with the plain version."""
     rng = np.random.default_rng(130)
     d = 130 if case == "d130" else 384
     t = topk_kernel.CLUSTER_MAX_T + 1 if case == "large" else 2413
+    k = 25
+    assert 8 < topk_kernel.WGMMA_MIN_Q
     qt = _unit_rows(rng, 8, d, cuda_device)
     tt = _unit_rows(rng, t + 1, d, cuda_device).view(-1)
     tt = (tt[1:1 + t * d] if case == "misaligned" else tt[:t * d]).view(t, d)
-    assert topk_kernel.topk_route(8, t, d, 25, tt, qt) == "split"
+    assert topk_kernel.topk_route(8, t, d, k, tt, qt) == "split"
     if case != "large":
-        with pytest.raises(ValueError):
-            topk_kernel.topk_sim_cuda(qt, tt, 25, route="cluster")
+        for route in ("cluster", "wgmma"):
+            with pytest.raises(ValueError):
+                topk_kernel.topk_sim_cuda(qt, tt, k, route=route)
     before = dict(topk_kernel.launches_by_route)
-    ks, ki = topk_sim(qt, tt, 25)
+    ks, ki = topk_sim(qt, tt, k)
     torch.cuda.synchronize()
     assert topk_kernel.launches_by_route == {**before, "split": before["split"] + 2}
-    rs, ri = topk_sim_ref(qt, tt, 25)
+    rs, ri = topk_sim_ref(qt, tt, k)
     torch.testing.assert_close(ks, rs, atol=1e-5, rtol=0)
     assert torch.equal(ki, ri)
 

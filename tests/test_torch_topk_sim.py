@@ -126,11 +126,23 @@ def test_split_plan_covers_the_table():
     (64, 2413, 384, 25, 0, "cluster"),  # the re-ranker's batch
     (1, 300, 384, 128, 0, "cluster"),
     (8, cuda_kernel.CLUSTER_MAX_T, 384, 25, 0, "cluster"),  # the reach, inclusive
-    (8, cuda_kernel.CLUSTER_MAX_T + 1, 384, 25, 0, "split"),
-    (64, 100_000, 384, 5, 0, "split"),  # the serving table
+    (8, cuda_kernel.CLUSTER_MAX_T + 1, 384, 25, 0, "split"),  # below WGMMA_MIN_Q
+    (16, cuda_kernel.CLUSTER_MAX_T + 1, 384, 20, 0, "wgmma"),  # Q * k = 320, the reach
+    (16, cuda_kernel.CLUSTER_MAX_T + 1, 384, 25, 0, "split"),  # Q * k = 400: the wgmma route lost
+    (64, 100_000, 384, 5, 0, "wgmma"),  # the serving table, batch 64
+    (8, 100_000, 384, 5, 0, "split"),  # batch 8: below WGMMA_MIN_Q, the measured crossover
+    (cuda_kernel.WGMMA_MIN_Q, 100_000, 384, 5, 0, "wgmma"),
+    (16, 100_003, 384, cuda_kernel.WGMMA_MAX_K, 0, "split"),  # Q * k = 512, past the crossover
+    (64, 100_000, 384, 25, 0, "split"),  # Q * k past the measured crossover
+    (33, 100_003, 384, cuda_kernel.WGMMA_MAX_K, 0, "split"),
     (8, 2413, 130, 25, 0, "split"),  # rows are not whole 16-byte units
     (8, 2413, 384, 25, 1, "split"),  # a table base off a 16-byte boundary
     (64, 2413, 1024, 128, 0, "split"),  # no two-stage ring fits shared memory
+    (64, 100_000, 130, 5, 0, "split"),  # no TMA row of whole 16-byte units
+    (64, 100_000, 384, 5, 1, "split"),
+    (64, 100_000, 384, cuda_kernel.WGMMA_MAX_K + 1, 0, "split"),  # k above the filter's
+    (65, 100_000, 384, 5, 0, "split"),  # more queries than one block holds
+    (16, 100_000, 16, 5, 0, "split"),  # D under one 32-column box
 ])
 def test_topk_route_picks_by_shape_and_alignment(n_q, n_t, d, k, offset, want):
     """`topk_route` is decided before launch from shape and alignment alone
@@ -145,3 +157,90 @@ def test_topk_route_picks_by_shape_and_alignment(n_q, n_t, d, k, offset, want):
     if want == "cluster":
         assert fits and d % 4 == 0
     assert cuda_kernel.cluster_qb(n_q) == (8 if n_q <= 8 else cuda_kernel.CLUSTER_QB)
+    if want == "wgmma":
+        n, _, _, stages = cuda_kernel.wgmma_plan(n_q, n_t, d, k, n_sms=132)
+        assert n_t > cuda_kernel.CLUSTER_MAX_T and d % 4 == 0 and n >= n_q
+        assert n_q >= cuda_kernel.WGMMA_MIN_Q and n_q * k <= cuda_kernel.WGMMA_MAX_QK
+        assert stages >= 4 and cuda_kernel.wgmma_smem_bytes(n, d, k, stages) <= 227 * 1024
+    assert cuda_kernel.can_take(want, queries, table, k)
+
+
+@pytest.mark.parametrize("n_t", [cuda_kernel.CLUSTER_MAX_T + 1, 16_384, 100_000, 100_003])
+def test_wgmma_plan_covers_the_table(n_t):
+    """The wgmma route's slices are whole 64-row tiles that tile the table
+    exactly, about one block per SM, n_split * k within what pass 2 merges,
+    and a ring of at least four boxes within 227 KB of shared memory for
+    every Q <= 64 and k <= WGMMA_MAX_K at D = 384."""
+    for n_q in range(1, cuda_kernel.WGMMA_MAX_Q + 1):
+        for k in range(1, cuda_kernel.WGMMA_MAX_K + 1):
+            n, n_split, rows, stages = cuda_kernel.wgmma_plan(n_q, n_t, 384, k, n_sms=132)
+            assert n in (8, 16, 32, 64) and n_q <= n <= max(2 * n_q - 2, 8)
+            assert rows % cuda_kernel.WROWS == 0
+            assert (n_split - 1) * rows < n_t <= n_split * rows
+            assert n_split <= 132 and n_split * k <= cuda_kernel.MAX_CAND
+            assert cuda_kernel.WMIN_STAGES <= stages <= cuda_kernel.WMAX_STAGES
+            assert cuda_kernel.wgmma_smem_bytes(n, 384, k, stages) <= 227 * 1024
+            assert (cuda_kernel.wgmma_smem_bytes(n, 384, k, stages + 1) > 227 * 1024
+                    or stages == cuda_kernel.WMAX_STAGES)
+
+
+def _tf32(x):
+    """float32 read as TF32 by the tensor cores: the low 13 mantissa bits dropped."""
+    return (np.ascontiguousarray(x, np.float32).view(np.uint32) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _fma_chain(q, t):
+    """Each row pair's float32 FMA chain over d = 0..D-1, the split route's
+    order (a float64 product is exact, then one rounding to float32)."""
+    s = np.zeros(q.shape[0], np.float32)
+    for j in range(q.shape[1]):
+        s = (q[:, j].astype(np.float64) * t[:, j] + s).astype(np.float32)
+    return s
+
+
+def _tensor_core(q, t):
+    """A tensor-core-like score: the exact products of the TF32 operands,
+    summed in float32 in blocks of eight, the blocks added in order."""
+    prod = _tf32(q).astype(np.float64) * _tf32(t)
+    blocks = prod.reshape(q.shape[0], -1, 8).sum(axis=2).astype(np.float32)
+    s = np.zeros(q.shape[0], np.float32)
+    for j in range(blocks.shape[1]):
+        s = s + blocks[:, j]
+    return s
+
+
+@pytest.mark.parametrize("case", ["gaussian", "unit", "wide_range", "worst_truncation"])
+@pytest.mark.parametrize("d", [32, 384, 1024])
+def test_wgmma_margin_bounds_the_tf32_error(case, d):
+    """|TF32 tensor-core score - float32 FMA chain| <= coef |q| |t| +
+    abs_coef (|q| + |t| + 1) on random inputs in numpy, and with every
+    operand's 13 dropped bits set (the largest truncation) and t = q, where
+    the bound is nearly reached: the margin is a bound, not a tuned tolerance."""
+    rng = np.random.default_rng(d)
+    n = 512
+    if case == "worst_truncation":
+        mant = np.uint32(0x3F800000 | 0x1FFF)  # 1 + (2^13 - 1) 2^-23
+        one = np.array([mant], np.uint32).view(np.float32)[0]
+        sign = np.where(rng.random((n, d)) < 0.5, -1, 1).astype(np.float32)
+        # t = q: every product |q_d|^2 > 0, so sum|qt| = |q| |t| (Cauchy-Schwarz's equality)
+        q = one * np.exp2(rng.integers(-3, 3, (n, d))).astype(np.float32) * sign
+        t = q.copy()
+    elif case == "wide_range":
+        q = (rng.normal(size=(n, d)) * np.exp(rng.normal(size=(n, d)) * 4)).astype(np.float32)
+        t = (rng.normal(size=(n, d)) * np.exp(rng.normal(size=(n, d)) * 4)).astype(np.float32)
+    else:
+        q = rng.normal(size=(n, d)).astype(np.float32)
+        t = rng.normal(size=(n, d)).astype(np.float32)
+        if case == "unit":
+            q /= np.linalg.norm(q, axis=1, keepdims=True)
+            t /= np.linalg.norm(t, axis=1, keepdims=True)
+    coef, abs_coef = cuda_kernel.margin_coefs(d)
+    qn = np.linalg.norm(q.astype(np.float64), axis=1)
+    tn = np.linalg.norm(t.astype(np.float64), axis=1)
+    bound = coef * qn * tn + abs_coef * (qn + tn + 1)
+    err = np.abs(_tensor_core(q, t).astype(np.float64) - _fma_chain(q, t))
+    ratio = float((err / bound).max())
+    assert ratio <= 1.0, ratio
+    if case == "worst_truncation":  # the bound's TF32 term, 2^-9 |q| |t|, is reached
+        assert float((err / (qn * tn)).max()) > 0.99 * 2.0**-9, ratio
