@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path and model pool once on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path, model pool and offline OATS
+pipeline once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -14,8 +14,9 @@ package `repro`. Phases, each of which fails the run by raising:
   3. kernels — hold each kernel against its plain PyTorch version on the
                card, at the main paths' shapes and at edge cases (topk_sim
                on each of its routes that can take the inputs, cluster,
-               split and wgmma, the wgmma route also bitwise against the
-               split route, and flash attention
+               split, wgmma and select, the wgmma and select routes also
+               bitwise against the split route, select also at k = 130,
+               k = T and D = 1,536, which only it takes; and flash attention
                on both its kernels: wgmma for bf16, fma for float32 and for
                bf16 with hd % 8 != 0, each launch checked against the route
                `topk_route` or `flash_route` gives; the SSD scan also on
@@ -49,7 +50,18 @@ package `repro`. Phases, each of which fails the run by raising:
                cluster route); then
                profile a second short drain for the device's
                busy and idle share, and one 2,048-token prefill alone;
-  6. times   — CUDA-event times of each kernel, its plain version and the
+  6. pipeline — fit OATS-S1, S2 and S3 (`OATSPipeline.fit` through
+               `BenchmarkEvaluator`) on the card on the full MetaTool-like
+               and ToolBench-like benchmarks and print NDCG@5 and Recall@1;
+               the same S1 fit through the port on the CPU must make the
+               same gate decision and NDCG@5 within 1e-3 (rows whose
+               ranking differs counted under the near-tie rule), S2 and S3
+               must fall in the band the JAX package gives over seeds 0-4;
+               then serve ToolBench-like's refined table, swapped into a
+               fused-backend router, at batches 8 and 64 against the dense
+               backend, and with the S2 re-ranker at k = 26, whose C = 130
+               candidates only topk_sim's select route takes;
+  7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
                alternating rounds of 200 calls, medians, at 100,000 tools
@@ -104,6 +116,17 @@ TIME_ROUNDS = 5  # rounds in turns of a small kernel's timing (one sample moves 
 CROSSOVER_T = (2413, 4096, 6144, 8192, 12288)  # cluster vs split vs wgmma route
 CROSSOVER_Q = (1, 8, 9, 16, 33, 64)  # split vs wgmma route at 100,000 tools, k = 5
 CROSSOVER_K = (5, 10, 16, 25)  # and as k grows, at Q = 16 and 64
+# the offline pipeline: the JAX package's OATS-S2 and S3 NDCG@5 over
+# PipelineConfig.seed 0-4 on each full benchmark, as [min - 0.01, max + 0.01]
+# (measured on a CPU by `python tests/test_torch_pipeline.py`; the card's
+# machine has no JAX). S1 has no randomness but the numpy gate split.
+PIPELINE_BANDS = {
+    "make_metatool_like": {"oats-s2": (0.9294, 0.9541), "oats-s3": (0.9296, 0.9568)},
+    "make_toolbench_like": {"oats-s2": (0.7367, 0.7795), "oats-s3": (0.7367, 0.7795)},
+}
+PIPELINE_PRESETS = ("se", "oats-s1", "oats-s2", "oats-s3")
+S1_NDCG_ATOL = 1e-3  # card against the port's CPU fit: matmul summation orders differ
+RERANK_K = 26  # the gateway asks the backend for C = 5k = 130 > 128 candidates
 
 
 def log(*parts) -> None:
@@ -312,8 +335,13 @@ def main() -> int:
     from repro_torch import convert
     from repro_torch.core.adapter import DIM, HIDDEN
     from repro_torch.core.features import OutcomeFeaturizer
-    from repro_torch.core.reranker import LAYERS
-    from repro_torch.data.benchmarks import make_toolbench_like, scale_tool_corpus
+    from repro_torch.core.evaluate import BenchmarkEvaluator
+    from repro_torch.core.refine import RefineConfig, refine_with_gate
+    from repro_torch.common.bucketing import pad_amount
+    from repro_torch.core.reranker import LAYERS, rerank_topk_scored
+    from repro_torch.core.retrieval import NEG_INF, topk_dense
+    from repro_torch.data.benchmarks import (make_metatool_like, make_toolbench_like,
+                                             scale_tool_corpus)
     from repro_torch.embedding.bag_encoder import BagEncoder
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
@@ -326,6 +354,7 @@ def main() -> int:
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.router.gateway import PHASES, SemanticRouter
     from repro_torch.router.scheduler import ContinuousBatcher, Request
+    from repro_torch.router.stages import StageSet
     from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
 
     t_start = time.perf_counter()
@@ -417,6 +446,10 @@ def main() -> int:
                 raise AssertionError(f"{name}: the wgmma route is not bitwise the split route")
             log(f"kernel check {name} Q={q.shape[0]} T={t.shape[0]} k={k}: wgmma route "
                 f"bitwise equal to the split route")
+        if "select" in got and "split" in got:
+            (xs, xi), (ss, si) = got["select"], got["split"]
+            if not (torch.equal(xs, ss) and torch.equal(xi, si)):
+                raise AssertionError(f"{name}: the select route is not bitwise the split route")
 
     # each shape on the route topk_route gives it, then forced on the others
     # that can take it; D = 130 can only take the split route (D % 4 != 0)
@@ -435,13 +468,22 @@ def main() -> int:
             check_routes("zero-padded", q, t, 5)
         if d % 4 != 0 and topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "split":
             raise AssertionError(f"D={d} must take the split route")
+    # what only the select route takes: k past 128 (the re-ranker's C = 130
+    # at k = 26), k = T, D past 1,024; its FMA chain and cuBLAS may order
+    # float32 near-ties apart, so the near-tie rule applies
+    for n_q, n_t, d, k in [(64, 2413, 384, 130), (8, 2413, 384, 130), (8, 2413, 384, 2413),
+                           (8, 2413, 1536, 25), (33, 100_003, 384, 130)]:
+        q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
+        if topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "select":
+            raise AssertionError(f"k={k} D={d} must take the select route")
+        check_routes("select", q, t, k, tie=NEAR_TIE)
     # one-hot rows tiled so that bitwise ties cross every tile, slice and
     # split boundary: lowest-index-first is the only right order
     base = torch.zeros((9, 128), device=dev)
     base[torch.arange(9), torch.arange(9)] = 1.0
     for reps in (11_111, topk_kernel.CLUSTER_MAX_T // 9):
         ties = base.repeat(reps, 1).contiguous()
-        for n_q, k in [(40, 8), (4, 128)]:
+        for n_q, k in [(40, 8), (4, 128), (4, 200)]:  # k = 200: the select route alone
             q = unit_rows(n_q, 128, gen)
             for route in topk_kernel.ROUTES:
                 if not topk_kernel.can_take(route, q, ties, k):
@@ -882,7 +924,7 @@ def main() -> int:
               "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers * len(ssd_kernel.PHASES),
               "topk_sim": len(routed)}
     expect_routes = {"wgmma": POOL_REQUESTS * pool_cfg.n_layers, "fma": 0}
-    expect_topk = {"cluster": len(routed), "split": 0, "wgmma": 0}
+    expect_topk = {"cluster": len(routed), "split": 0, "wgmma": 0, "select": 0}
     if (pool_launches != expect or pool_flash_routes != expect_routes
             or pool_topk_routes != expect_topk or len(prefill_ms) != POOL_REQUESTS):
         raise AssertionError(f"pool: launches {pool_launches}, flash by route "
@@ -975,7 +1017,168 @@ def main() -> int:
         f"busy {busy:.2f} ms (idle share {1 - busy / profiled_ms:.4f}); device ms by kernel "
         + json.dumps({k: round(v, 3) for k, v in own.items()}))
 
-    # ----------------------------------------------------------------- 6. times
+    # -------------------------------------------------------------- 6. pipeline
+    # the offline OATS pipeline on the card, then its refined table served;
+    # this path's launches are counted from here on
+    for mod in kernel_modules.values():
+        mod.launches = 0
+    topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+    t_pipe = time.perf_counter()
+    pipe_benches = {"make_metatool_like": make_metatool_like(0), "make_toolbench_like": bench}
+    pipe_rows, pipe_fits = [], {}
+    for bname, pb in pipe_benches.items():
+        ev_card = BenchmarkEvaluator(pb, device=dev)
+        ev_cpu = BenchmarkEvaluator(pb, device="cpu")
+        for preset in PIPELINE_PRESETS:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = ev_card.rankings_for(preset)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t
+            pipe_fits[(bname, preset)] = res
+            row = dict(bench=bname, preset=preset, device="card", seconds=fit_s,
+                       ndcg5=res.metrics["ndcg@5"], recall1=res.metrics["recall@1"])
+            if preset in PIPELINE_BANDS[bname]:
+                lo, hi = PIPELINE_BANDS[bname][preset]
+                row["band"] = [lo, hi]
+                if not lo <= row["ndcg5"] <= hi:
+                    raise AssertionError(f"{bname} {preset}: NDCG@5 {row['ndcg5']:.6f} outside "
+                                         f"the JAX package's band [{lo}, {hi}]")
+            pipe_rows.append(row)
+            log(f"pipeline {bname} {preset} on the card: NDCG@5 {row['ndcg5']:.6f}, Recall@1 "
+                f"{row['recall1']:.6f}, fit + rank {fit_s:.2f} s"
+                + (f"; inside the JAX band {row['band']}" if "band" in row else "")
+                + f" on {card}")
+        # S1 through the port on the CPU, in this process: same gate, NDCG@5
+        # within S1_NDCG_ATOL, differing rows only inside near-ties
+        card_s1 = pipe_fits[(bname, "oats-s1")]
+        t = time.perf_counter()
+        cpu_s1 = ev_cpu.rankings_for("oats-s1")
+        cpu_s = time.perf_counter() - t
+        g_card, g_cpu = card_s1.pipeline.refine_result, cpu_s1.pipeline.refine_result
+        if bool(g_card.accepted) != bool(g_cpu.accepted):
+            raise AssertionError(f"{bname}: the gate accepted={bool(g_card.accepted)} on the "
+                                 f"card but {bool(g_cpu.accepted)} on the CPU")
+        d_ndcg = abs(card_s1.metrics["ndcg@5"] - cpu_s1.metrics["ndcg@5"])
+        if d_ndcg > S1_NDCG_ATOL:
+            raise AssertionError(f"{bname}: S1 NDCG@5 card {card_s1.metrics['ndcg@5']:.6f} vs "
+                                 f"CPU {cpu_s1.metrics['ndcg@5']:.6f}")
+        test_q = ev_cpu.query_emb[ev_cpu.test_idx]
+        n_rule = 0
+        for j in np.flatnonzero((card_s1.rankings != cpu_s1.rankings).any(axis=1)):
+            sc_card = test_q[j] @ card_s1.pipeline.tool_table.T
+            sc_cpu = test_q[j] @ cpu_s1.pipeline.tool_table.T
+            a_idx, b_idx = card_s1.rankings[j], cpu_s1.rankings[j]
+            if not same_ranking(a_idx, sc_card[a_idx], b_idx, sc_cpu[b_idx], NEAR_TIE):
+                raise AssertionError(f"{bname} S1 test row {j}: card {a_idx.tolist()} vs CPU "
+                                     f"{b_idx.tolist()}")
+            n_rule += 1
+        table_err = float(np.abs(card_s1.pipeline.tool_table - cpu_s1.pipeline.tool_table).max())
+        pipe_rows.append(dict(bench=bname, preset="oats-s1", device="cpu", seconds=cpu_s,
+                              ndcg5=cpu_s1.metrics["ndcg@5"],
+                              recall1=cpu_s1.metrics["recall@1"],
+                              accepted=bool(g_cpu.accepted), card_accepted=bool(g_card.accepted),
+                              gate_before=float(g_card.recall_before),
+                              gate_after=float(g_card.recall_after),
+                              table_max_abs_err=table_err, near_tie_rows=n_rule))
+        log(f"pipeline {bname} oats-s1 on the CPU: NDCG@5 {cpu_s1.metrics['ndcg@5']:.6f} "
+            f"(card - CPU {card_s1.metrics['ndcg@5'] - cpu_s1.metrics['ndcg@5']:+.2e}), "
+            f"Recall@1 {cpu_s1.metrics['recall@1']:.6f}; "
+            f"gate accepted on both ({bool(g_card.accepted)}), Recall@5 "
+            f"{float(g_card.recall_before):.6f} -> {float(g_card.recall_after):.6f} on the card; "
+            f"tables within {table_err:.3g}; test rows ranked apart inside near-ties: {n_rule}")
+        # refine_with_gate alone on the card, at this benchmark's fit split
+        train = pb.train_idx
+        perm = np.random.default_rng(0).permutation(len(train))
+        n_val = max(int(round(0.15 * len(train))), 1)
+        fit_i, val_i = train[np.sort(perm[n_val:])], train[np.sort(perm[:n_val])]
+        rel_all = pb.relevance_matrix()
+        cm_all = pb.candidate_mask()
+        def on(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        args = (on(ev_cpu.tool_emb), on(ev_cpu.query_emb[fit_i]), on(rel_all[fit_i]),
+                on(ev_cpu.query_emb[val_i]), on(rel_all[val_i]), RefineConfig(),
+                on(cm_all[fit_i]), on(cm_all[val_i]))
+        refine_ms = [cuda_ms(lambda: refine_with_gate(*args), iters=5, warmup=2)
+                     for _ in range(3)]
+        pipe_rows[-1]["refine_with_gate_ms"] = refine_ms
+        log(f"pipeline {bname}: refine_with_gate on the card {min(refine_ms):.3f} ms (runs "
+            + ", ".join(f"{x:.3f}" for x in refine_ms) + f"; fit split {len(fit_i)} queries x "
+            f"{pb.n_tools} tools, 3 iterations) on {card}")
+
+    # serve ToolBench-like's refined table through a fused-backend router
+    # after a CAS swap, against the dense backend on the same table
+    s2 = pipe_fits[("make_toolbench_like", "oats-s2")].pipeline
+    refined = np.ascontiguousarray(s2.tool_table, np.float32)
+    db_pipe = ToolsDatabase(records(bench.n_tools), native)
+    test_toks = [bench.query_tokens[j] for j in bench.test_idx]
+    fused, dense = router(db_pipe, "fused", None), router(db_pipe, "dense", None)
+    v0 = db_pipe.table_version
+    db_pipe.swap_table(refined, expect_current=v0)
+    pipe_serve = {}
+    for bs in BATCH_SIZES:
+        blocks = [test_toks[s:s + bs] for s in range(0, len(test_toks), bs)]
+        res = [r for toks in blocks for r in fused.route_batch(toks)]
+        ref = [r for toks in blocks for r in dense.route_batch(toks)]
+        if fused.index.last_path() != "index:fused" or any(r.table_version != v0 + 1 for r in res):
+            raise AssertionError("pipeline: the refined table was not served by the fused index")
+        pipe_serve[bs] = agree(res, ref, f"refined table batch {bs}")
+        log(f"pipeline serve: ToolBench-like's refined table (v{v0 + 1}) at batch {bs}: "
+            f"{len(res)} test queries equal to the dense backend (rows reordered inside "
+            f"near-ties: {pipe_serve[bs]})")
+    fused.close()
+    dense.close()
+    # the S2 re-ranker at k = 26 over the same table: C = 130 candidates,
+    # which only the select route takes
+    before_select = topk_kernel.launches_by_route["select"]
+    stages_s2 = StageSet(mlp_params=s2.mlp_params, featurizer=s2.featurizer)
+    rr = SemanticRouter(db_pipe, embed_fn=enc.encode_one, embed_batch_fn=enc.encode,
+                        k=RERANK_K, backend="fused", stages=stages_s2, metrics=False, device=dev)
+    batches = [test_toks[s:s + 64] for s in range(0, len(test_toks), 64)]
+    routed_rr = [rr.route_batch(toks) for toks in batches]
+    rr.close()
+    select_calls = (topk_kernel.launches_by_route["select"] - before_select) // 2
+    if select_calls < 1 or any(len(r.tools) != RERANK_K for b in routed_rr for r in b):
+        raise AssertionError(f"pipeline: the k={RERANK_K} re-rank made {select_calls} select calls")
+    pipe_launches = topk_kernel.launches
+    pipe_routes = dict(topk_kernel.launches_by_route)
+    pipe_s = time.perf_counter() - t_pipe
+    # the check: the router's candidates (the select route, here on the same
+    # padded block) against the dense backend's under the near-tie rule, and
+    # its results against the plain re-rank of those candidates (the MLP's
+    # logits amplify the candidates' float32 rounding, so the re-rank is held
+    # to its own inputs); these launches do not count
+    table_dev = torch.from_numpy(refined).to(dev)
+    n_cand_rule = 0
+    for toks, got in zip(batches, routed_rr):
+        n_pad = pad_amount(len(toks))
+        q_in = np.concatenate([enc.encode(toks), np.zeros((n_pad, refined.shape[1]), np.float32)])
+        toks_in = list(toks) + [np.zeros(0, np.int64)] * n_pad
+        q_t = torch.from_numpy(q_in).to(dev)
+        fs, fi = topk_kernel.topk_sim_cuda(q_t, table_dev, 5 * RERANK_K)
+        ds, di = topk_dense(q_t, table_dev, 5 * RERANK_K)
+        n = len(toks)
+        n_cand_rule += compare_topk(fs[:n], fi[:n], ds[:n], di[:n], NEAR_TIE)[1]
+        feats = s2.featurizer.features(q_in, toks_in, fi.cpu().numpy(), fs.cpu().numpy())
+        ti, ts = rerank_topk_scored(s2.mlp_params, torch.from_numpy(feats).to(dev), fi,
+                                    RERANK_K, valid=fs > NEG_INF / 2)
+        for j, r in enumerate(got):
+            if r.tools != ti[j].tolist() or max(
+                    abs(x - y) for x, y in zip(r.scores, ts[j].tolist())) > SCORE_ATOL:
+                raise AssertionError(f"re-rank k={RERANK_K} row {j}: {r.tools} vs the plain "
+                                     f"re-rank {ti[j].tolist()}")
+    topk_kernel.launches, topk_kernel.launches_by_route = pipe_launches, dict(pipe_routes)
+    log(f"pipeline serve: the S2 re-ranker at k={RERANK_K} asked for C={RERANK_K * 5}: "
+        f"{select_calls} calls on topk_sim's select route; its candidates equal to the dense "
+        f"backend's (rows reordered inside near-ties: {n_cand_rule}) and the results to the "
+        f"plain re-rank of them")
+    log(f"pipeline path: {pipe_s:.1f} s, topk_sim launches {pipe_launches}, by route "
+        + json.dumps(pipe_routes))
+    if pipe_routes["select"] == 0 or pipe_launches == 0:
+        raise AssertionError(f"the pipeline path launched topk_sim {pipe_routes}")
+
+    # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
         kernel, both results down), on each large-table route in turns: host
@@ -1123,6 +1326,32 @@ def main() -> int:
             f"{host_ms:.4f} ms, CUDA-event time {event_ms:.4f} ms, device time per launch "
             + json.dumps({k[:40]: round(v, 5) for k, v in dev_ms.items()}) + f" on {card}")
 
+    # the select route at the re-ranker's shape: a batch of 64 over the
+    # native 2,413 tools, C = 5 x 26 = 130 candidates
+    sel_q = torch.from_numpy(q_all[:64]).to(dev)
+    sel_k = 5 * RERANK_K
+    sel_rounds = alternating({
+        "kernel": lambda: topk_kernel.topk_sim_cuda(sel_q, table_native, sel_k),
+        "library": lambda: torch.topk(sel_q @ table_native.T, sel_k)})
+    sel_ms = float(np.median(sel_rounds["kernel"]))
+    sel_lib = float(np.median(sel_rounds["library"]))
+    sel_plain = cuda_ms(lambda: topk_sim_ref(sel_q, table_native, sel_k))
+    sel_bound, sel_by = topk_bound(64, table_native.shape[0], sel_q.shape[1], sel_k)["cuda_cores"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            topk_kernel.topk_sim_cuda(sel_q, table_native, sel_k)
+        torch.cuda.synchronize()
+    sel_passes = {name: e.self_device_time_total / 1e3 / e.count
+                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  for name in ("topk_sim_select_scores", "topk_sim_select_topk") if name in e.key}
+    log(f"time topk_sim Q=64 T={table_native.shape[0]} D={sel_q.shape[1]} k={sel_k} (select): "
+        f"kernel median {sel_ms:.4f} ms (rounds "
+        + ", ".join(f"{t:.4f}" for t in sel_rounds["kernel"])
+        + f"), torch.topk(q@t.T) median {sel_lib:.4f} ms (rounds "
+        + ", ".join(f"{t:.4f}" for t in sel_rounds["library"]) + f"); plain {sel_plain:.4f} ms; "
+        f"bound {sel_bound:.4f} ms ({sel_by}); device ms per launch "
+        + json.dumps({k: round(v, 4) for k, v in sel_passes.items()}) + f" on {card}")
+
     # the new kernels at the full-width shapes of layer 0's prefill (bf16)
     (q, k, v), kw = captured["flash"][0]
     g = q.shape[0] // k.shape[0]
@@ -1182,10 +1411,22 @@ def main() -> int:
         shape=head["shape"], route_of_shape=head["route"], shapes=shapes, checks=checks,
         index_agreement="exact except reordering inside near-ties (rows counted in checks); "
                         "the wgmma route bitwise equal to the split route",
-        launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"]},
-        launches_by_route={"serve": serve_routes, "pool": pool_topk_routes},
+        launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"],
+                          "pipeline": pipe_launches},
+        launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
+                           "pipeline": pipe_routes},
         rescored={"serve": serve_rescored},
         crossover=crossover, host_vs_device=host_split,
+    ), dict(
+        name="topk_sim (select route)", route="cuda",
+        source="src/repro_torch/kernels/csrc/topk_sim.cu",
+        replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=pipe_routes["select"],
+        max_abs_err=max(c["max_abs_err"] for c in checks if c["route"] == "select"),
+        ms=sel_ms, plain_ms=sel_plain, bound_ms=sel_bound, bound_by=sel_by, library_ms=sel_lib,
+        shape=[64, table_native.shape[0], sel_q.shape[1], sel_k], rounds_ms=sel_rounds,
+        device_ms_per_launch=sel_passes,
+        library=f"torch.topk(q @ t.T, {sel_k})",
+        launches_path="pipeline: the S2 re-ranker at k = 26 over the refined table",
     ), dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1213,7 +1454,10 @@ def main() -> int:
                    profiled=[{k: v for k, v in p.items() if k != "per_kernel_ms"}
                              for p in profiled],
                    pool={k: v for k, v in pool_stats.items() if k != "decode_ms"},
-                   model_check_max_abs_err=model_err, init_fan_in=conditioning)
+                   model_check_max_abs_err=model_err, init_fan_in=conditioning,
+                   pipeline=dict(rows=pipe_rows, serve_near_tie_rows=pipe_serve,
+                                 rerank_candidates_near_tie_rows=n_cand_rule,
+                                 seconds=pipe_s))
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

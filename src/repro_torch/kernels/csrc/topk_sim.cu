@@ -164,9 +164,29 @@
 // merge keeps a threshold (the list's k-th key): only candidates above it
 // are staged, and a staged batch is merged by rank counting.
 //
+// "select", for what the three above refuse: k > 128 (the gateway asks for
+// C = 5k candidates when its re-ranker runs, 130 at k = 26) or D > 1024.
+// It takes any k <= T and any D, as the Pallas kernel does, and is simple
+// rather than fast: it only has to be right. Two launches:
+//   pass 1, topk_sim_select_scores: grid (ceil(T/128), ceil(Q/8)); each
+//     thread scores one row against 8 queries with the split route's
+//     float32 FMA chain over d = 0..D-1 (chunks of 32 columns staged in
+//     shared memory, so D has no upper limit) and writes the scores to a
+//     [Q, T] float32 scratch: 4QT bytes more than the other routes move.
+//   pass 2, topk_sim_select_topk: one block per query finds the k-th
+//     largest 64-bit key (the same keys as above, so ties go to the lowest
+//     row) by a radix select: eight passes over the row's T keys, each
+//     counting the next 8 bits of the keys that match the prefix found so
+//     far in a 256-bin shared histogram. Keys are distinct, so exactly k
+//     keys are >= the k-th; they are compacted (a shared atomic counter)
+//     into shared memory (k <= 4096) or into a [Q, pow2(k)] scratch, padded
+//     with the key 0 (below every key of a row < 2^31 - 1) and sorted
+//     descending by a block-wide bitonic sort.
+//
 // The empty-slot sentinel NEG_INF is an argument, passed from Python, so
-// the port has one sentinel. Limits: k <= 128, D <= 1024, the split and
-// wgmma routes' n_split*k <= 4096 (the wrapper checks them).
+// the port has one sentinel. Limits of the first three routes: k <= 128,
+// D <= 1024, the split and wgmma routes' n_split*k <= 4096 (the wrapper
+// checks them); the select route's: k <= T < 2^31 - 1.
 
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -1314,6 +1334,140 @@ int launch(const void* queries, const void* table, int n_q, int n_t, int d, int 
 
 }  // namespace wr
 
+// ------------------------------------------------------------- select route
+namespace sel {
+
+constexpr int QB = 8;             // pass 1: queries a block
+constexpr int ROWS = 128;         // pass 1: rows a block, one a thread
+constexpr int DK = 32;            // pass 1: columns staged at once
+constexpr int THREADS = 512;      // pass 2
+constexpr int SMEM_KEYS = 4096;   // pass 2 sorts up to this many keys in shared memory
+
+__global__ void __launch_bounds__(ROWS) topk_sim_select_scores(
+    const float* __restrict__ queries, const float* __restrict__ table, int n_q, int n_t, int d,
+    float* __restrict__ scores) {
+  __shared__ float q_s[QB][DK];
+  __shared__ float t_s[ROWS][DK + 1];  // odd stride: a thread's row, conflict-free
+  const int tid = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
+  const int q0 = blockIdx.y * QB;
+  float acc[QB];
+#pragma unroll
+  for (int i = 0; i < QB; ++i) acc[i] = 0.0f;
+  for (int d0 = 0; d0 < d; d0 += DK) {
+    // a warp reads 32 consecutive columns of one row per step
+    for (int e = tid; e < ROWS * DK; e += ROWS) {
+      const int r = e / DK, c = e % DK;
+      const long long row = row0 + r;
+      t_s[r][c] = (row < n_t && d0 + c < d) ? __ldg(table + row * d + d0 + c) : 0.0f;
+    }
+    for (int e = tid; e < QB * DK; e += ROWS) {
+      const int i = e / DK, c = e % DK;
+      q_s[i][c] = (q0 + i < n_q && d0 + c < d)
+                      ? __ldg(queries + static_cast<long long>(q0 + i) * d + d0 + c)
+                      : 0.0f;
+    }
+    __syncthreads();
+    const int nc = min(DK, d - d0);
+    for (int c = 0; c < nc; ++c) {  // the split route's chain: d = 0..D-1 in order
+      const float tv = t_s[tid][c];
+#pragma unroll
+      for (int i = 0; i < QB; ++i) acc[i] = fmaf(q_s[i][c], tv, acc[i]);
+    }
+    __syncthreads();
+  }
+  const long long row = row0 + tid;
+  if (row < n_t) {
+#pragma unroll
+    for (int i = 0; i < QB; ++i)
+      if (q0 + i < n_q) scores[static_cast<long long>(q0 + i) * n_t + row] = acc[i];
+  }
+}
+
+// Sort x[0..p) descending (p a power of two) with a bitonic network; every
+// thread of the block calls it. x is in shared or in global memory: the
+// barrier between steps orders both for the block.
+__device__ void bitonic_sort_desc(uint64_t* x, int p) {
+  for (int size = 2; size <= p; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < p / 2; i += blockDim.x) {
+        const int lo = 2 * stride * (i / stride) + (i % stride);
+        const int hi = lo + stride;
+        const bool desc = (lo & size) == 0;
+        const uint64_t a = x[lo], b = x[hi];
+        if (desc ? a < b : a > b) {
+          x[lo] = b;
+          x[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// One block per query: radix-select the k-th largest key of the row's T
+// scores, compact the k keys >= it, sort them, write (score, row) pairs.
+// `sorted` is a [Q, p] scratch used only when p > SMEM_KEYS.
+__global__ void __launch_bounds__(THREADS) topk_sim_select_topk(
+    const float* __restrict__ scores, int n_t, int k, int p, uint64_t* __restrict__ sorted,
+    float* __restrict__ out_scores, int64_t* __restrict__ out_idx) {
+  __shared__ unsigned hist[256];
+  __shared__ uint64_t prefix_s;
+  __shared__ int remaining_s;
+  __shared__ unsigned count_s;
+  __shared__ uint64_t keys_s[SMEM_KEYS];
+  const int tid = threadIdx.x;
+  const long long qi = blockIdx.x;
+  const float* row = scores + qi * n_t;
+
+  uint64_t prefix = 0, mask = 0;
+  int remaining = k;  // the wanted key's rank among the keys that match `prefix`
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
+    __syncthreads();
+    for (int i = tid; i < n_t; i += THREADS) {
+      const uint64_t key = pack_key(row[i], static_cast<uint32_t>(i));
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int b = 255, r = remaining;
+      while (static_cast<int>(hist[b]) < r) {  // the counts above sum to >= r
+        r -= static_cast<int>(hist[b]);
+        --b;
+      }
+      prefix_s = prefix | (static_cast<uint64_t>(b) << shift);
+      remaining_s = r;
+    }
+    __syncthreads();
+    prefix = prefix_s;
+    remaining = remaining_s;
+    mask |= static_cast<uint64_t>(255) << shift;
+  }
+  // prefix is now the k-th largest key; exactly k keys are >= it
+
+  uint64_t* x = p <= SMEM_KEYS ? keys_s : sorted + qi * p;
+  if (tid == 0) count_s = 0;
+  for (int i = k + tid; i < p; i += THREADS) x[i] = 0ull;
+  __syncthreads();
+  for (int i = tid; i < n_t; i += THREADS) {
+    const uint64_t key = pack_key(row[i], static_cast<uint32_t>(i));
+    if (key >= prefix) {
+      const unsigned slot = atomicAdd(&count_s, 1u);
+      if (slot < static_cast<unsigned>(k)) x[slot] = key;
+    }
+  }
+  __syncthreads();
+  bitonic_sort_desc(x, p);
+  for (int i = tid; i < k; i += THREADS) {
+    const uint64_t key = x[i];
+    out_scores[qi * k + i] = key_score(key);
+    out_idx[qi * k + i] = static_cast<int64_t>(key_row(key));
+  }
+}
+
+}  // namespace sel
+
 }  // namespace
 
 extern "C" {
@@ -1421,6 +1575,37 @@ int topk_sim_wgmma_launch(int device, int n_pad, const void* queries, const void
   if (n_pad == 32) return wr::launch<16, 2>(queries, table, n_q, n_t, d, k, n_split, rows_per_split, stages, coef, abs_coef, neg_inf, partial, rescored, s);
   if (n_pad == 64) return wr::launch<32, 2>(queries, table, n_q, n_t, d, k, n_split, rows_per_split, stages, coef, abs_coef, neg_inf, partial, rescored, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The select route's pass 1: scores [n_q, n_t] float32 by the FMA chain.
+int topk_sim_select_scores_launch(int device, const void* queries, const void* table, int n_q,
+                                  int n_t, int d, void* scores, void* stream) {
+  if (n_q < 1 || n_t < 1 || d < 1 || (n_q + sel::QB - 1) / sel::QB > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_t + sel::ROWS - 1) / sel::ROWS, (n_q + sel::QB - 1) / sel::QB);
+  sel::topk_sim_select_scores<<<grid, sel::ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(queries), static_cast<const float*>(table), n_q, n_t, d,
+      static_cast<float*>(scores));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The select route's pass 2: one block per query over its n_t scores; p is
+// k rounded up to a power of two, `sorted` a [n_q, p] uint64 scratch read
+// only when p > 4096 (may be any pointer otherwise).
+int topk_sim_select_topk_launch(int device, const void* scores, int n_q, int n_t, int k, int p,
+                                void* sorted, void* out_scores, void* out_idx, void* stream) {
+  if (n_q < 1 || k < 1 || k > n_t || p < k || (p & (p - 1)) != 0 || p > (1 << 30)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sel::topk_sim_select_topk<<<n_q, sel::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(scores), n_t, k, p, static_cast<uint64_t*>(sorted),
+      static_cast<float*>(out_scores), static_cast<int64_t*>(out_idx));
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* topk_sim_error_string(int err) {

@@ -9,7 +9,7 @@ interface (`kernels/nvcc.py`), cached under `kernels/build/` by a hash of
 the source, and loads it with ctypes. Nothing here runs at import: the CPU
 tests import this module on machines with no nvcc and no card.
 
-The source holds three routes, and `topk_route` picks one before launch
+The source holds four routes, and `topk_route` picks one before launch
 from shape and alignment: "cluster" (one launch; a thread-block cluster per
 query block streams the table through shared memory with bulk copies and
 merges its lists in distributed shared memory) for tables of up to
@@ -19,8 +19,12 @@ float32, then the split route's merge) for larger tables with
 WGMMA_MIN_Q <= Q <= 64 and Q * k <= WGMMA_MAX_QK (forced, it takes
 Q <= 64 and k <= 32); and "split" (two launches: float32 FMAs over table
 slices on the whole card, then a merge through a scratch tensor) for the
-rest and for inputs the bulk copies cannot take. None falls back to
-another. The wgmma route returns bitwise what the split route returns.
+rest and for inputs the bulk copies cannot take; "select" (two launches:
+the split route's FMA chain writes a [Q, T] score scratch, then a radix
+select and a bitonic sort a query) only for what the other three refuse,
+k > MAX_K or D > MAX_D: it takes any k <= T and any D, as the Pallas
+kernel does. None falls back to another. The wgmma and select routes
+return bitwise what the split route returns where it can run.
 
 `topk_sim_cuda` checks its inputs, allocates the outputs (and the two-pass
 routes' scratch) with `torch.empty`, and launches on the current stream.
@@ -39,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.common.bucketing import pow2_bucket
 from repro_torch.core.retrieval import NEG_INF
 from repro_torch.kernels.nvcc import CudaLibrary, sm_count
 
@@ -59,6 +64,7 @@ __all__ = [
     "margin_coefs",
     "rescored",
     "reset_rescored",
+    "select_sort_len",
     "split_plan",
     "topk_route",
     "topk_sim_cuda",
@@ -101,7 +107,11 @@ WMIN_STAGES, WMAX_STAGES = 4, 24
 # came within 3% either way at 640 (64 x 10), and lost from 1,024 (64 x 16)
 WGMMA_MIN_Q = 9
 WGMMA_MAX_QK = 320
-ROUTES = ("cluster", "split", "wgmma")
+# the select route's: pass 2 sorts up to SEL_SMEM_KEYS keys in shared memory,
+# more in a [Q, pow2(k)] scratch; its bitonic network indexes with 32-bit ints
+SEL_SMEM_KEYS = 4096
+SEL_MAX_K = 2**30
+ROUTES = ("cluster", "split", "wgmma", "select")
 
 launches = 0  # kernel launches since the last reset (1 a call on "cluster", 2 on the others)
 launches_by_route = dict.fromkeys(ROUTES, 0)  # the same launches, by route
@@ -132,6 +142,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, vp, vp, vp,
     ]
     lib.topk_sim_wgmma_launch.restype = ci
+    lib.topk_sim_select_scores_launch.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp]
+    lib.topk_sim_select_scores_launch.restype = ci
+    lib.topk_sim_select_topk_launch.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.topk_sim_select_topk_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("topk_sim", _bind)
@@ -189,7 +203,7 @@ def _cluster_takes(n_q: int, d: int, k: int, tensors) -> bool:
     """Whether the cluster kernel can take these inputs at all: rows of a
     whole number of 16-byte units on 16-byte aligned bases (bulk copies),
     and a ring of at least two stages in shared memory."""
-    return (d % 4 == 0 and 1 <= k <= MAX_K
+    return (d % 4 == 0 and d <= MAX_D and 1 <= k <= MAX_K
             and all(t.data_ptr() % 16 == 0 for t in tensors)
             and cluster_stages(cluster_qb(n_q), d, k) >= 2)
 
@@ -241,15 +255,23 @@ def _wgmma_takes(n_q: int, d: int, k: int, tensors) -> bool:
             and wgmma_stages(wgmma_n(n_q), d, k) >= WMIN_STAGES)
 
 
+def select_sort_len(k: int) -> int:
+    """The select route's sort length: k rounded up to a power of two."""
+    return pow2_bucket(k)
+
+
 def can_take(route: str, queries: torch.Tensor, table: torch.Tensor, k: int) -> bool:
     """Whether `route`'s kernel can take these inputs (any table size): the
-    split route takes everything the wrapper accepts."""
+    split route takes every k <= MAX_K and D <= MAX_D, the select route
+    everything the wrapper accepts."""
     n_q, d = queries.shape
     if route == "cluster":
         return _cluster_takes(n_q, d, k, (table, queries))
     if route == "wgmma":
         return _wgmma_takes(n_q, d, k, (table, queries))
-    return route == "split"
+    if route == "split":
+        return 1 <= k <= MAX_K and d <= MAX_D
+    return route == "select"
 
 
 def topk_route(n_q: int, n_t: int, d: int, k: int, table: torch.Tensor,
@@ -259,8 +281,11 @@ def topk_route(n_q: int, n_t: int, d: int, k: int, table: torch.Tensor,
     ring in shared memory); "wgmma" for a larger one, a batch of at least
     WGMMA_MIN_Q queries and Q * k <= WGMMA_MAX_QK (where it beat the split
     route), if the wgmma kernel can take it (also 32 <= D, Q <= 64,
-    k <= 32); else "split"."""
+    k <= 32); "select" where k > MAX_K or D > MAX_D, which no other route
+    takes; else "split"."""
     tensors = (table,) if queries is None else (table, queries)
+    if k > MAX_K or d > MAX_D:
+        return "select"
     if n_t <= CLUSTER_MAX_T:
         return "cluster" if _cluster_takes(n_q, d, k, tensors) else "split"
     if (n_q >= WGMMA_MIN_Q and n_q * k <= WGMMA_MAX_QK
@@ -316,12 +341,14 @@ def topk_sim_cuda(
     n_t = table.shape[0]
     if table.shape[1] != d:
         raise ValueError(f"queries have D={d} but table rows D={table.shape[1]}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"D={d} outside the kernel's [1, {MAX_D}]")
-    if not 1 <= k <= min(n_t, MAX_K):
-        raise ValueError(f"k={k} outside [1, min(T={n_t}, {MAX_K})]")
+    if d < 1:
+        raise ValueError(f"D={d}: rows must have at least one column")
+    if not 1 <= k <= n_t:
+        raise ValueError(f"k={k} outside [1, T={n_t}]")  # as lax.top_k refuses
     if n_t >= 2**31 - 1:
         raise ValueError(f"T={n_t} does not fit the kernel's 32-bit row ids")
+    if k > SEL_MAX_K:
+        raise ValueError(f"k={k} above the select route's sort network ({SEL_MAX_K})")
     if route is None:
         route = topk_route(n_q, n_t, d, k, table, queries)
     elif route not in ROUTES or not can_take(route, queries, table, k):
@@ -356,6 +383,25 @@ def topk_sim_cuda(
         LIBRARY.check(rc, "topk_sim_cluster")
         launches += 1
         launches_by_route["cluster"] += 1
+        return scores, idx
+    if route == "select":
+        sims = torch.empty((n_q, n_t), dtype=torch.float32, device=dev)
+        rc = lib.topk_sim_select_scores_launch(
+            dev.index, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, sims.data_ptr(), stream,
+        )
+        LIBRARY.check(rc, "topk_sim_select_scores")
+        launches += 1
+        launches_by_route["select"] += 1
+        p = select_sort_len(k)
+        sort_buf = torch.empty((n_q, p) if p > SEL_SMEM_KEYS else (1,), dtype=torch.int64,
+                               device=dev)
+        rc = lib.topk_sim_select_topk_launch(
+            dev.index, sims.data_ptr(), n_q, n_t, k, p, sort_buf.data_ptr(),
+            scores.data_ptr(), idx.data_ptr(), stream,
+        )
+        LIBRARY.check(rc, "topk_sim_select_topk")
+        launches += 1
+        launches_by_route["select"] += 1
         return scores, idx
     if route == "wgmma":
         counter = _rescored.get(dev.index)

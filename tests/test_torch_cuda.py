@@ -8,6 +8,7 @@ only the port's dependencies. There, run it without the suite's conftest
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -97,7 +98,8 @@ def test_topk_sim_cluster_route_matches_plain(cuda_device, q, t, k):
 
 @pytest.mark.parametrize("route,k", [("cluster", 8), ("cluster", 128), ("split", 8),
                                      ("split", 128), ("wgmma", 8),
-                                     ("wgmma", topk_kernel.WGMMA_MAX_K)])
+                                     ("wgmma", topk_kernel.WGMMA_MAX_K), ("select", 8),
+                                     ("select", 129), ("select", 600)])
 def test_topk_sim_routes_break_ties_at_every_boundary(cuda_device, route, k):
     """One-hot rows tiled past CLUSTER_MAX_T so bitwise ties cross every
     chunk, tile, slice and cluster boundary of each route: lowest index first."""
@@ -111,6 +113,119 @@ def test_topk_sim_routes_break_ties_at_every_boundary(cuda_device, route, k):
     torch.testing.assert_close(ks, rs, atol=1e-6, rtol=0)
     best = q[:, :9].argmax(dim=1)
     assert torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=cuda_device)[None, :])
+
+
+@pytest.mark.parametrize("q,t,d,k", [
+    (8, 2413, 384, 129), (64, 2413, 384, 130), (5, 300, 384, 300), (3, 9000, 64, 9000),
+    (33, 5003, 1025, 5), (8, 2413, 1536, 25), (2, 100_003, 384, 130), (1, 1, 1100, 1),
+])
+def test_topk_sim_select_route_matches_plain(cuda_device, q, t, d, k):
+    """k above 128 (the re-ranker's C = 5k at k >= 26), k = T (9,000 sorts
+    in the scratch, past the 4,096 keys of shared memory) and D above 1,024
+    take the select route, two launches, whose ranking is the plain
+    version's (scores within 1e-5; indices as `_assert_cluster_ranking`
+    says: its FMA chain and cuBLAS may order float32 near-ties apart)."""
+    rng = np.random.default_rng(q * 7 + t + d)
+    qt, tt = _unit_rows(rng, q, d, cuda_device), _unit_rows(rng, t, d, cuda_device)
+    assert topk_kernel.topk_route(q, t, d, k, tt, qt) == "select"
+    assert not topk_kernel.can_take("split", qt, tt, k)
+    before = dict(topk_kernel.launches_by_route)
+    ks, ki = topk_sim(qt, tt, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, "select": before["select"] + 2}
+    assert bool((ks[:, :-1] >= ks[:, 1:]).all())
+    rs, ri = topk_sim_ref(qt, tt, k)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+@pytest.mark.parametrize("q,t,k", [(8, 2413, 25), (64, 2413, 128), (33, 100_003, 5)])
+def test_topk_sim_select_route_is_bitwise_the_split_route(cuda_device, q, t, k):
+    """Forced where the split route can run too, the select route returns
+    its bits: the same FMA chain and the same keys."""
+    rng = np.random.default_rng(t + k)
+    qt, tt = _unit_rows(rng, q, 384, cuda_device), _unit_rows(rng, t, 384, cuda_device)
+    ss, si = topk_kernel.topk_sim_cuda(qt, tt, k, route="split")
+    xs, xi = topk_kernel.topk_sim_cuda(qt, tt, k, route="select")
+    assert torch.equal(xs, ss) and torch.equal(xi, si)
+
+
+def test_topk_sim_select_route_ties_in_the_scratch_sort(cuda_device):
+    """One-hot rows tiled 5,000 times and k = 4,500: the sort runs in the
+    global scratch (past 4,096 keys) and still puts ties lowest index first."""
+    base = torch.zeros((9, 128), device=cuda_device)
+    base[torch.arange(9), torch.arange(9)] = 1.0
+    table = base.repeat(5000, 1).contiguous()
+    q = _unit_rows(np.random.default_rng(3), 4, 128, cuda_device)
+    k = 4500
+    assert topk_kernel.select_sort_len(k) > topk_kernel.SEL_SMEM_KEYS
+    ks, ki = topk_sim(q, table, k)
+    best = q[:, :9].argmax(dim=1)
+    assert torch.equal(ki, best[:, None] + 9 * torch.arange(k, device=cuda_device)[None, :])
+    torch.testing.assert_close(ks, q.gather(1, best[:, None]).expand(-1, k), atol=1e-6, rtol=0)
+
+
+def _assert_same_up_to_near_ties(idx_a, sc_a, idx_b, sc_b, tie=1e-5):
+    """Ranking a equals b, scores within 1e-5, except that a may reorder
+    runs of b's positions whose adjacent scores are closer than `tie` (the
+    last run may take in a member from just beyond the list)."""
+    np.testing.assert_allclose(sc_a, sc_b, atol=1e-5, rtol=0)
+    if list(idx_a) == list(idx_b):
+        return
+    assert len(set(idx_a)) == len(idx_a)
+    start = 0
+    for p in range(1, len(idx_b) + 1):
+        if p == len(idx_b) or sc_b[p - 1] - sc_b[p] >= tie:
+            if p < len(idx_b):
+                assert set(idx_a[start:p]) == set(idx_b[start:p]), (idx_a, idx_b)
+            start = p
+
+
+def test_gateway_reranks_26_over_the_fused_backend(cuda_device):
+    """A SemanticRouter with the re-ranker at k = 26 asks the fused backend
+    for C = 130 candidates: it serves them on the select route, without
+    raising, and routes as the dense backend does (the near-tie rule of
+    `_assert_cluster_ranking` on the candidates' similarities)."""
+    from repro_torch.core.features import OutcomeFeaturizer
+    from repro_torch.core.reranker import LAYERS
+    from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.stages import StageSet
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    rng = np.random.default_rng(0)
+    n_t, d, n_q = 2413, 384, 64
+    words = rng.normal(size=(4000, d)).astype(np.float32)
+    vocab = SimpleNamespace(word_vecs=words)
+    enc = BagEncoder(vocab, device=cuda_device)
+    desc = [rng.integers(0, 4000, 12) for _ in range(n_t)]
+    queries = [rng.integers(0, 4000, 8) for _ in range(n_q)]
+    table = enc.encode(desc)
+    q_emb = enc.encode(queries)
+    rel = np.zeros((n_q, n_t), np.float32)
+    rel[np.arange(n_q), rng.integers(0, n_t, n_q)] = 1.0
+    retrieved = np.argsort(-(q_emb @ table.T), axis=1, kind="stable")[:, :26]
+    feat = OutcomeFeaturizer.fit(q_emb, queries, rel, retrieved, rng.integers(0, 10, n_t),
+                                 n_clusters=8, seed=0)
+    mlp = {}
+    for li, (din, dout) in enumerate(zip(LAYERS[:-1], LAYERS[1:])):
+        mlp[f"w{li}"] = torch.from_numpy(
+            (rng.normal(size=(din, dout)) * np.sqrt(2.0 / din)).astype(np.float32)).to(cuda_device)
+        mlp[f"b{li}"] = torch.zeros(dout, device=cuda_device)
+    db = ToolsDatabase([ToolRecord(i, f"t{i}", desc[i], 0) for i in range(n_t)], table)
+    routers = {b: SemanticRouter(db, embed_fn=enc.encode_one, embed_batch_fn=enc.encode, k=26,
+                                 backend=b, stages=StageSet(mlp_params=mlp, featurizer=feat),
+                                 metrics=False, device=cuda_device)
+               for b in ("fused", "dense")}
+    before = dict(topk_kernel.launches_by_route)
+    fused = routers["fused"].route_batch(queries)
+    assert routers["fused"].index.last_path() == "index:fused"
+    assert topk_kernel.launches_by_route["select"] >= before["select"] + 2
+    dense = routers["dense"].route_batch(queries)
+    for a, b in zip(fused, dense):
+        assert len(a.tools) == 26 and a.table_version == b.table_version
+        _assert_same_up_to_near_ties(a.tools, a.scores, b.tools, b.scores)
+    for r in routers.values():
+        r.close()
 
 
 def _auto_route(q, k):
@@ -271,7 +386,9 @@ def test_topk_sim_kernel_rejects_bad_inputs(cuda_device):
         lambda: topk_kernel.topk_sim_cuda(q.double(), t.double(), 2),  # dtype
         lambda: topk_kernel.topk_sim_cuda(q, t[:, :4], 2),  # D mismatch
         lambda: topk_kernel.topk_sim_cuda(q, t.T, 2),  # not contiguous
-        lambda: topk_kernel.topk_sim_cuda(q, t, 129),  # k above the kernel's limit
+        lambda: topk_kernel.topk_sim_cuda(q, t, 0),  # k below 1
+        lambda: topk_kernel.topk_sim_cuda(q, t, 129, route="split"),  # k above split's limit
+        lambda: topk_kernel.topk_sim_cuda(q, t, 2, route="sort"),  # no such route
         lambda: topk_kernel.topk_sim_cuda(q, t[:3], 4),  # k > T
     ):
         with pytest.raises(ValueError):

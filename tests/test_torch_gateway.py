@@ -59,7 +59,7 @@ def _jnp(params):
 class _Pair:
     """A JAX router and a port router over identical databases."""
 
-    def __init__(self, bench, jax_backend, torch_backend):
+    def __init__(self, bench, jax_backend, torch_backend, k=5):
         table = JaxBagEncoder(bench.vocab).encode(bench.desc_tokens)
         self.table = table
         n = bench.n_tools
@@ -72,9 +72,9 @@ class _Pair:
         jenc = JaxBagEncoder(bench.vocab)
         tenc = BagEncoder(bench.vocab, device=CPU)
         self.jax = JaxRouter(self.jdb, embed_fn=jenc.encode_one, embed_batch_fn=jenc.encode,
-                             k=5, backend=jax_backend, metrics=False)
+                             k=k, backend=jax_backend, metrics=False)
         self.torch = SemanticRouter(self.tdb, embed_fn=tenc.encode_one,
-                                    embed_batch_fn=tenc.encode, k=5, backend=torch_backend,
+                                    embed_batch_fn=tenc.encode, k=k, backend=torch_backend,
                                     metrics=MetricsRegistry(), device=CPU)
 
     def compare(self, queries, masks=None):
@@ -129,6 +129,22 @@ def test_route_batch_matches_jax(small_bench, jax_backend, torch_backend, stages
     if stages == "rerank":
         reg = pair.torch._obs.registry
         assert reg.histogram("route_phase_ms", phase="rerank").count() == len(BATCHES)
+
+
+@pytest.mark.parametrize("jax_backend,torch_backend", BACKEND_PAIRS)
+def test_route_batch_reranks_26_over_400_tools_matches_jax(small_bench_sparse, jax_backend,
+                                                           torch_backend):
+    """k = 26 with the re-ranker asks the backend for C = 130 candidates,
+    past the 128 that the fused kernel's first three routes take (on the
+    card the select route serves them; here its plain version). The port
+    routes as the JAX gateway does, whose Pallas backend takes any k."""
+    pair = _Pair(small_bench_sparse, jax_backend, torch_backend, k=26)
+    js, ts = _stage_pairs(small_bench_sparse, pair.table, "rerank")
+    pair.jax.set_stages(js, expect_version=0)
+    pair.torch.set_stages(ts, expect_version=0)
+    results = pair.compare(small_bench_sparse.query_tokens[:13])
+    assert all(len(r.tools) == 26 for r in results)
+    assert pair.torch.index.last_path() == f"index:{torch_backend}"
 
 
 @pytest.mark.parametrize("jax_backend,torch_backend", BACKEND_PAIRS)

@@ -14,6 +14,10 @@ import torch
 import repro_torch
 from repro_torch.embedding.bag_encoder import BagEncoder
 from repro_torch.configs import get_config
+from repro_torch.core.adapter import train_adapter
+from repro_torch.core.evaluate import BenchmarkEvaluator
+from repro_torch.core.pipeline import OATSPipeline, PipelineConfig
+from repro_torch.core.reranker import train_reranker
 from repro_torch.index import DenseBackend, FusedBackend, ToolIndexManager
 from repro_torch.models import model as M
 from repro_torch.models.config import reduced
@@ -37,7 +41,13 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.convert", "repro_torch.data.benchmarks",
             "repro_torch.models.model", "repro_torch.router.scheduler",
             "repro_torch.kernels.flash_attention.kernel",
-            "repro_torch.kernels.ssd_scan.kernel"} <= set(modules)
+            "repro_torch.kernels.ssd_scan.kernel",
+            "repro_torch.metrics.retrieval", "repro_torch.core.outcomes",
+            "repro_torch.core.refine", "repro_torch.optim", "repro_torch.optim.base",
+            "repro_torch.optim.adamw", "repro_torch.core.adapter",
+            "repro_torch.core.reranker", "repro_torch.core.deployment",
+            "repro_torch.core.baselines", "repro_torch.core.pipeline",
+            "repro_torch.core.evaluate"} <= set(modules)
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -70,6 +80,7 @@ def no_cuda():
 
 def test_entry_points_default_to_the_card(no_cuda):
     vocab = SimpleNamespace(word_vecs=np.ones((5, 384), np.float32))
+    bench = SimpleNamespace(vocab=vocab)
     table = np.eye(4, 384, dtype=np.float32)
     db = ToolsDatabase([ToolRecord(i, f"t{i}", np.zeros(1, np.int64), 0) for i in range(4)],
                        table)
@@ -81,6 +92,11 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: BagEncoder(vocab),
         lambda: M.init(reduced(get_config("hymba-1.5b")), torch.Generator()),
         lambda: ContinuousBatcher(reduced(get_config("hymba-1.5b")), {}),
+        lambda: OATSPipeline.fit(bench, PipelineConfig()),
+        lambda: BenchmarkEvaluator(bench),
+        lambda: train_reranker(np.zeros((4, 7), np.float32), np.zeros(4, np.float32)),
+        lambda: train_adapter(table, table, (np.zeros(0, np.int64),) * 3, table,
+                              np.eye(4, dtype=np.float32)),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

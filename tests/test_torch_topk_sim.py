@@ -108,6 +108,14 @@ def test_topk_sim_op_rejects_bad_inputs():
         cuda_kernel.topk_sim_cuda(q, torch.zeros((4, 8)), 2)  # CPU tensors
 
 
+@pytest.mark.parametrize("k,want", [(1, 1), (2, 2), (129, 256), (130, 256), (4096, 4096),
+                                    (4097, 8192), (100_000, 131_072)])
+def test_select_sort_len_is_the_next_power_of_two(k, want):
+    """The select route's bitonic sort runs over k rounded up to a power of
+    two, in shared memory up to SEL_SMEM_KEYS keys, in a scratch above."""
+    assert cuda_kernel.select_sort_len(k) == want
+
+
 def test_split_plan_covers_the_table():
     """Pass 1's slices tile the table exactly, every slice non-empty, and
     pass 2's candidate count stays within what it merges in shared memory."""
@@ -143,6 +151,11 @@ def test_split_plan_covers_the_table():
     (64, 100_000, 384, cuda_kernel.WGMMA_MAX_K + 1, 0, "split"),  # k above the filter's
     (65, 100_000, 384, 5, 0, "split"),  # more queries than one block holds
     (16, 100_000, 16, 5, 0, "split"),  # D under one 32-column box
+    (8, 2413, 384, 129, 0, "select"),  # k past MAX_K: only the select route takes it
+    (64, 2413, 384, 130, 0, "select"),  # the re-ranker's C = 5k at k = 26
+    (64, 7000, 384, 7000, 1, "select"),  # k = T, misaligned
+    (8, 2413, 1025, 5, 0, "select"),  # D past MAX_D
+    (33, 7000, 1536, 25, 0, "select"),
 ])
 def test_topk_route_picks_by_shape_and_alignment(n_q, n_t, d, k, offset, want):
     """`topk_route` is decided before launch from shape and alignment alone
@@ -163,6 +176,11 @@ def test_topk_route_picks_by_shape_and_alignment(n_q, n_t, d, k, offset, want):
         assert n_q >= cuda_kernel.WGMMA_MIN_Q and n_q * k <= cuda_kernel.WGMMA_MAX_QK
         assert stages >= 4 and cuda_kernel.wgmma_smem_bytes(n, d, k, stages) <= 227 * 1024
     assert cuda_kernel.can_take(want, queries, table, k)
+    # the select route takes whatever the wrapper accepts, and only it takes k > MAX_K
+    # or D > MAX_D
+    assert cuda_kernel.can_take("select", queries, table, k)
+    assert (want == "select") == (k > cuda_kernel.MAX_K or d > cuda_kernel.MAX_D)
+    assert (want == "select") != cuda_kernel.can_take("split", queries, table, k)
 
 
 @pytest.mark.parametrize("n_t", [cuda_kernel.CLUSTER_MAX_T + 1, 16_384, 100_000, 100_003])
