@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path, model pool and offline OATS
-pipeline once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path, model pool, offline OATS
+pipeline and online refinement loop once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -61,6 +61,30 @@ package `repro`. Phases, each of which fails the run by raising:
                fused-backend router, at batches 8 and 64 against the dense
                backend, and with the S2 re-ranker at k = 26, whose C = 130
                candidates only topk_sim's select route takes;
+  8. loop    — (run before 7) the §7.2 loop through a fused-backend router
+               on the card with its bus, quality monitor and tracer:
+               outcomes stream into the OutcomeStore over 6 windows of
+               MetaTool-like train queries, RefinementController.step()
+               refines on the card and CAS-swaps, TableGuard watches; the
+               windows that swap and the versions must equal the JAX
+               package's (LOOP_TRAJECTORY) and the same loop through the port
+               on the CPU, NDCG@5 within S1_NDCG_ATOL; then an injected bad
+               table must be flagged by drift before the guard rolls it back
+               to the good table; then controller.start() refines and swaps
+               on its daemon thread while the main thread serves, every
+               result the exact top-5 of the table its version names, no
+               step failed, no loop_error event, HealthMonitor status ok;
+               then batches of 64 under a thread swapping tables every 2 ms
+               at 2,413 and 100,000 tools (every result checked against its
+               version's table, p99 per query under 10 ms; the whole
+               batch's p50/p99 printed); then the route cache in front of
+               the fused backend at 25,000 tools on Zipf traffic (zero
+               stale serves, hit rate >= 0.90 and agreement >= 0.98 at
+               s = 1.1; the speedup and churn p99 printed). Each leg's
+               topk_sim launches must take the routes `topk_route` gives
+               its block sizes: cluster at 199 and 2,413 tools, wgmma for
+               the 64-query batches at 100,000, split and wgmma for the
+               cache's miss blocks of 1-32 queries at 25,000;
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -82,9 +106,11 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import functools
+import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -127,6 +153,30 @@ PIPELINE_BANDS = {
 PIPELINE_PRESETS = ("se", "oats-s1", "oats-s2", "oats-s3")
 S1_NDCG_ATOL = 1e-3  # card against the port's CPU fit: matmul summation orders differ
 RERANK_K = 26  # the gateway asks the backend for C = 5k = 130 > 128 candidates
+# the online loop (phase 8), at benchmarks/control_bench.py's full settings:
+# MetaTool-like (seed 0, 2,400 queries, 199 tools), 6 windows of train
+# queries routed in batches of 64 with every routed tool's outcome recorded,
+# ControllerConfig(min_events=1000, min_queries=30), GuardConfig(min_samples=32),
+# held-out NDCG@5 over 400 test queries after each step. The JAX package's
+# trajectory as (events, table_version, swapped, NDCG@5), the first entry
+# before any step (measured on a CPU by `python tests/test_torch_control.py`;
+# the card's machine has no JAX).
+LOOP_TRAJECTORY = (
+    (0, 0, False, 0.804511), (1400, 1, True, 0.858980), (2800, 2, True, 0.884811),
+    (4200, 2, False, 0.884811), (5600, 2, False, 0.884811), (7000, 3, True, 0.894755),
+    (8400, 3, False, 0.894755))
+LOOP_QUERIES, LOOP_WINDOWS, LOOP_BATCH, LOOP_EVAL = 2400, 6, 64, 400
+LOOP_MIN_EVENTS, LOOP_MIN_QUERIES, LOOP_MIN_SAMPLES = 1000, 30, 32
+LOOP_ACT2_BASELINE = 300  # labelled test queries served on the good table first
+LOOP_THREAD_INTERVAL_S, LOOP_THREAD_DEADLINE_S, LOOP_THREAD_PASSES = 0.05, 120.0, 6
+BUDGET_MS = 10.0  # the paper's per-query routing budget
+CHURN_BATCH, CHURN_CALLS, CHURN_SWAP_S = 64, 64, 0.002  # control_bench's churn leg
+# the route cache (benchmarks/cache_bench.py's full settings)
+CACHE_TOOLS, CACHE_BATCHES, CACHE_ZIPF = 25_000, 150, (0.8, 1.1, 1.4)
+CACHE_QUERY_LEN, CACHE_SWAP_EVERY = 24, 15
+CACHE_WARMUP = (1, 2, 4, 8, 16, 32)
+CACHE_HIT_FLOOR, CACHE_AGREEMENT_FLOOR = 0.90, 0.98  # gates (s = 1.1)
+CACHE_SPEEDUP_REF, CACHE_CHURN_P99_REF = 2.0, 2.5  # the reference's gates: printed only
 
 
 def log(*parts) -> None:
@@ -311,6 +361,552 @@ def plain_kernels():
         layers.flash_attention, ssm.ssd_ops = originals
 
 
+def port_pkg(device):
+    """The port's side of the loop driver below, on `device`. The driver
+    takes a package as a namespace, so a test can hand it the JAX
+    package's side too."""
+    import repro_torch.control as control
+    from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.index import ToolIndexManager
+    from repro_torch.obs import EventBus, QualityMonitor
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    return types.SimpleNamespace(
+        control=control, Router=SemanticRouter, DB=ToolsDatabase, Record=ToolRecord,
+        Bus=EventBus, Quality=QualityMonitor, Index=ToolIndexManager,
+        encoder=lambda vocab: BagEncoder(vocab, device=device),
+        device_kw={"device": device})
+
+
+def loop_world(pkg, bench, table, backend="dense", *, min_events=LOOP_MIN_EVENTS,
+               min_queries=LOOP_MIN_QUERIES, min_samples=LOOP_MIN_SAMPLES, guard_k=5,
+               tolerance=0.02, wired=True, metrics=False, tracer=None):
+    """One package's §7.2 serving + control plane over `table`: a router
+    wired to an outcome store, a table guard and a refinement controller
+    (which refines on the router's device) and, when `wired`, to a bus and
+    a quality monitor that watch the database before the index does. With
+    a `metrics` registry the index manager is built here and records its
+    build times there; else the router owns it."""
+    enc = pkg.encoder(bench.vocab)
+    db = pkg.DB([pkg.Record(i, f"tool_{i}", bench.desc_tokens[i], int(bench.tool_category[i]))
+                 for i in range(bench.n_tools)], table.copy())
+    bus = quality = None
+    if wired:
+        bus = pkg.Bus()
+        quality = pkg.Quality(bus=bus)
+        bus.watch_db(db)
+        quality.watch_db(db)
+    store = pkg.control.OutcomeStore(n_tools=len(db), capacity=200_000)
+    index = None
+    if metrics is not False:
+        index = pkg.Index(db, backend=backend, metrics=metrics, bus=bus, **pkg.device_kw)
+    router = pkg.Router(db, embed_fn=enc.encode_one, embed_batch_fn=enc.encode, k=5,
+                        outcome_sink=store.append, backend=backend, index=index,
+                        metrics=metrics, bus=bus, quality=quality, tracer=tracer,
+                        **pkg.device_kw)
+    guard = pkg.control.TableGuard(
+        db, pkg.control.GuardConfig(k=guard_k, min_samples=min_samples, tolerance=tolerance),
+        bus=bus)
+    controller = pkg.control.RefinementController(
+        db, store, enc.encode, routers=[router],
+        config=pkg.control.ControllerConfig(min_events=min_events, min_queries=min_queries),
+        guard=guard, bus=bus, **pkg.device_kw)
+    return types.SimpleNamespace(enc=enc, db=db, bus=bus, quality=quality, store=store,
+                                 index=router.index, router=router, guard=guard,
+                                 controller=controller)
+
+
+def close_world(w):
+    w.router.close()
+    w.index.close()
+
+
+def serve_window(w, bench, idx, batch_size=LOOP_BATCH, check=None):
+    """Route `idx` in batches, record every routed tool's outcome, feed the
+    guard and the quality monitor; `check(idx, results)` sees each batch."""
+    for lo in range(0, len(idx), batch_size):
+        chunk = idx[lo:lo + batch_size]
+        results = w.router.route_batch([bench.query_tokens[qi] for qi in chunk])
+        if check is not None:
+            check(chunk, results)
+        for qi, res in zip(chunk, results):
+            for t in res.tools:
+                w.router.record_outcome(bench.query_tokens[qi], t, int(t in bench.relevant[qi]))
+            w.guard.observe(res.table_version, res.tools, bench.relevant[qi])
+            if w.quality is not None:
+                w.quality.observe(res.tools, bench.relevant[qi])
+
+
+def heldout_ndcg(w, bench, n_eval=LOOP_EVAL):
+    import numpy as np
+
+    from repro_torch.metrics.retrieval import ndcg_at_k
+
+    idx = bench.test_idx[:n_eval]
+    results = w.router.route_batch([bench.query_tokens[qi] for qi in idx])
+    return float(np.mean([ndcg_at_k(r.tools, bench.relevant[qi], 5)
+                          for qi, r in zip(idx, results)]))
+
+
+def run_loop(w, bench, n_windows=LOOP_WINDOWS, n_eval=LOOP_EVAL):
+    """The §7.2 loop (`benchmarks/control_bench.py`'s first leg): the series
+    [(events, table_version, swapped, NDCG@5)] as LOOP_TRAJECTORY, the
+    first before any step; the steps' reports; the live table after each."""
+    import numpy as np
+
+    series = [(0, w.db.table_version, False, heldout_ndcg(w, bench, n_eval))]
+    reports, tables = [], []
+    for idx in np.array_split(bench.train_idx, n_windows):
+        serve_window(w, bench, idx)
+        rep = w.controller.step()
+        reports.append(rep)
+        tables.append(w.db.embeddings.copy())
+        series.append((w.store.total_ingested, rep.table_version, rep.swapped,
+                       heldout_ndcg(w, bench, n_eval)))
+    return series, reports, tables
+
+
+def inject_and_roll_back(w, bench, n_baseline=LOOP_ACT2_BASELINE, after_inject=None):
+    """`examples/live_loop.py`'s act 2: labelled traffic on the good table,
+    then a scrambled and shifted table bypasses the gate (`after_inject()`
+    runs on it); shadow windows until the guard rolls it back. Returns the
+    guard's actions."""
+    import numpy as np
+
+    serve_window(w, bench, bench.test_idx[:n_baseline])
+    rng = np.random.default_rng(0)
+    bad = w.db.embeddings.copy()
+    rng.shuffle(bad, axis=0)  # tool vectors scrambled across tools
+    bad += 3.0 * bad.std()  # and shifted off the query population
+    w.db.swap_table(bad)
+    if after_inject is not None:
+        after_inject()
+    actions = []
+    for idx in np.array_split(bench.test_idx, 3):
+        serve_window(w, bench, idx)
+        rep = w.controller.step()
+        actions.append(rep.guard.action)
+        if rep.guard.action == "rolled_back":
+            break
+    return actions
+
+
+def timed_on_card(fn, into):
+    """`fn`, appending each call's milliseconds, between card syncs, to `into`."""
+    import torch
+
+    def call(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn(*args)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t) * 1e3)
+        return result
+
+    return call
+
+
+def dense_top5(q_emb, table, device):
+    """(indices, scores) of each query's exact top-5, in float64 on `device`."""
+    import torch
+
+    sims = (torch.from_numpy(q_emb).to(device).double()
+            @ torch.from_numpy(table).to(device).double().T)
+    vals, idx = torch.topk(sims, 5)
+    return idx.cpu().numpy(), vals.cpu().numpy()
+
+
+def loop_phase(dev, card, tb_bench, tb_enc, native, big):
+    """Phase 8: the online refinement loop on the card. Returns the summary;
+    raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch.cache import CacheConfig, SemanticRouteCache
+    from repro_torch.core.refine import refine_with_gate
+    from repro_torch.data.benchmarks import make_metatool_like, scale_tool_corpus
+    from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.index import ToolIndexManager
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.obs import HealthMonitor, MetricsRegistry, RouteTracer
+    from repro_torch.obs.summary import percentile_stats
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+    from repro_torch.traffic import TrafficConfig, ZipfTrafficGenerator, agreement, drive
+
+    out = {}
+    pkg = port_pkg(dev)
+
+    def leg_routes(leg, before, table, sizes):
+        """The leg's topk_sim launches by route since `before`; blocks of
+        the sizes in `sizes` over `table`'s rows must have taken the routes
+        topk_route gives them, each of those routes at least once."""
+        got = {r: n - before[r] for r, n in topk_kernel.launches_by_route.items()}
+        n_t, d = table.shape
+        probe = torch.empty((1, d), device=dev)  # 16-byte aligned, as the served tensors
+        want = {topk_kernel.topk_route(n, n_t, d, 5, probe, probe) for n in sizes}
+        if {r for r, n in got.items() if n} != want:
+            raise AssertionError(f"{leg}: topk_sim launched {got}, expected the routes "
+                                 f"{sorted(want)} that topk_route gives {n_t} rows")
+        return got
+
+    # ---- (a) the §7.2 loop on the card, against the JAX trajectory and the
+    # same loop through the port on the CPU
+    t0 = time.perf_counter()
+    before = dict(topk_kernel.launches_by_route)
+    mt = make_metatool_like(seed=0, n_queries=LOOP_QUERIES)
+    mt_table = BagEncoder(mt.vocab, device="cpu").encode(mt.desc_tokens)
+    reg = MetricsRegistry()
+    tracer = RouteTracer(sample_every=16, seed=0)
+    w = loop_world(pkg, mt, mt_table, "fused", metrics=reg, tracer=tracer)
+    refine_ms = []
+    w.controller.refine_fn = timed_on_card(refine_with_gate, refine_ms)
+    on_card, card_reports, _ = run_loop(w, mt)
+    cpu_world = loop_world(port_pkg("cpu"), mt, mt_table)
+    on_cpu, cpu_reports, _ = run_loop(cpu_world, mt)
+    rows = []
+    for i, (c, p, ref) in enumerate(zip(on_card, on_cpu, LOOP_TRAJECTORY, strict=True)):
+        if c[:3] != ref[:3] or p[:3] != ref[:3]:
+            raise AssertionError(f"loop step {i}: card {c[:3]}, port CPU {p[:3]}, JAX {ref[:3]}")
+        if abs(c[3] - ref[3]) > S1_NDCG_ATOL or abs(p[3] - ref[3]) > 1e-6:
+            raise AssertionError(f"loop step {i}: NDCG@5 card {c[3]:.6f}, port CPU {p[3]:.6f}, "
+                                 f"JAX {ref[3]:.6f}")
+        row = dict(step=i, events=c[0], table_version=c[1], swapped=c[2], ndcg5_card=c[3],
+                   ndcg5_cpu=p[3], ndcg5_jax=ref[3])
+        if i:
+            rc, rp = card_reports[i - 1], cpu_reports[i - 1]
+            if (rc.triggered, rc.accepted, rc.swapped, rc.n_queries) != (
+                    rp.triggered, rp.accepted, rp.swapped, rp.n_queries):
+                raise AssertionError(f"loop step {i}: card {rc.reason!r}, CPU {rp.reason!r}")
+            row.update(reason=rc.reason, gate_card=[rc.recall_before, rc.recall_after],
+                       gate_cpu=[rp.recall_before, rp.recall_after])
+        rows.append(row)
+        log(f"loop step {i}: {c[0]} events, v{c[1]} {'SWAP' if c[2] else '----'} NDCG@5 card "
+            f"{c[3]:.6f} port CPU {p[3]:.6f} JAX {ref[3]:.6f}"
+            + (f" | {row['reason']}" if i else ""))
+    v_good, ndcg_good = w.db.table_version, on_card[-1][3]
+    # live_loop.py's act 2: a scrambled, shifted table bypasses the gate; the
+    # drift detector flags it label-free, then the guard rolls it back
+    ndcg_bad = []
+    actions = inject_and_roll_back(w, mt, after_inject=lambda: ndcg_bad.append(
+        heldout_ndcg(w, mt)))
+    kinds = [e.kind for e in w.bus.events()]
+    ndcg_restored = heldout_ndcg(w, mt)
+    if not w.guard.rollbacks or "quality_drift" not in kinds or "rollback" not in kinds:
+        raise AssertionError(f"act 2: guard {actions}, bus kinds {sorted(set(kinds))}")
+    if kinds.index("quality_drift") > kinds.index("rollback"):
+        raise AssertionError("act 2: the guard rolled back before drift was flagged")
+    if abs(ndcg_restored - ndcg_good) > 1e-6:
+        raise AssertionError(f"act 2: restored NDCG@5 {ndcg_restored:.6f} != good "
+                             f"{ndcg_good:.6f}")
+    log(f"loop act 2: injected v{v_good + 1} (NDCG@5 {ndcg_bad[0]:.6f}); guard {actions}; bus "
+        f"quality_drift (seq {w.bus.last('quality_drift').seq}) before rollback (seq "
+        f"{w.bus.last('rollback').seq}); restored v{w.db.table_version} NDCG@5 "
+        f"{ndcg_restored:.6f} = good {ndcg_good:.6f}")
+    traces = tracer.traces()
+    out["loop"] = dict(rows=rows, refine_with_gate_ms=refine_ms, act2=dict(
+        guard_actions=actions, ndcg_bad=ndcg_bad[0], ndcg_restored=ndcg_restored,
+        bus_kinds=kinds), traces=len(traces),
+        index_build_ms=reg.histogram("index_build_ms").summary(),
+        routes=leg_routes("loop", before, mt_table, range(1, LOOP_EVAL + 1)),
+        seconds=time.perf_counter() - t0)
+    log(f"loop: refine_with_gate on the card (main thread) ms {[round(x, 3) for x in refine_ms]}; "
+        f"{len(traces)} sampled traces, paths {sorted({t.path for t in traces})}; fused index "
+        f"rebuilds {w.index.stats['rebuilds']}, build ms p50 "
+        f"{reg.histogram('index_build_ms').percentile(50):.3f}; topk_sim by route "
+        + json.dumps(out["loop"]["routes"]) + f" on {card}")
+    close_world(w)
+    close_world(cpu_world)
+
+    # the controller's daemon thread refines and swaps while the main thread
+    # serves: every result must be the exact top-5 of the table its version
+    # names (tables recorded by a swap listener; checked after the run, as
+    # a batch may serve a version before the listener has run). A failed
+    # step is recorded and cleared by the next good one, so the run fails
+    # on any step that failed, not only on the last
+    t0 = time.perf_counter()
+    before = dict(topk_kernel.launches_by_route)
+    reg = MetricsRegistry()
+    w = loop_world(pkg, mt, mt_table, "fused", metrics=reg)
+    tables = {w.db.table_version: w.db.embeddings.copy()}
+
+    def record_table(version):
+        v, t = w.db.snapshot()
+        tables[v] = t
+
+    w.db.add_swap_listener(record_table)
+    daemon_ms = []
+    w.controller.refine_fn = timed_on_card(refine_with_gate, daemon_ms)
+    served = []
+
+    def keep(chunk, results):
+        served.append((chunk, results))
+
+    w.controller.start(interval_s=LOOP_THREAD_INTERVAL_S)
+    try:
+        deadline = time.perf_counter() + LOOP_THREAD_DEADLINE_S
+        passes = 0
+        while time.perf_counter() < deadline:
+            serve_window(w, mt, mt.train_idx, check=keep)
+            passes += 1
+            if any(r.swapped for r in w.controller.reports) and passes >= LOOP_THREAD_PASSES:
+                break
+    finally:
+        w.controller.stop()
+    q_cache, n_checked, n_rule = {}, 0, 0
+    for chunk, results in served:
+        versions = {r.table_version for r in results}
+        if len(versions) != 1:
+            raise AssertionError(f"threaded loop: one batch served versions {versions}")
+        v = versions.pop()
+        key = tuple(int(x) for x in chunk)
+        if key not in q_cache:
+            q_cache[key] = w.enc.encode([mt.query_tokens[qi] for qi in chunk])
+        idx, sc = dense_top5(q_cache[key], tables[v], dev)
+        for j, r in enumerate(results):
+            if r.tools != idx[j].tolist():
+                if not same_ranking(r.tools, r.scores, idx[j], sc[j], NEAR_TIE):
+                    raise AssertionError(f"threaded loop v{v}: {r.tools} vs {idx[j].tolist()}")
+                n_rule += 1
+            n_checked += 1
+    swaps = sum(r.swapped for r in w.controller.reports)
+    failed = [r.reason for r in w.controller.reports if r.reason.startswith("step failed")]
+    loop_errors = w.bus.counts().get("loop_error", 0)
+    health = HealthMonitor(routers=[w.router], controllers=[w.controller], indexes=[w.index],
+                           stores=[w.store], bus=w.bus).snapshot()
+    log("loop thread health " + json.dumps(health))
+    if (w.controller.last_loop_error is not None or failed or loop_errors or swaps < 1
+            or health["status"] != "ok"):
+        raise AssertionError(f"threaded loop: last error {w.controller.last_loop_error!r}, "
+                             f"failed steps {failed}, {loop_errors} loop_error events, "
+                             f"health {health['status']!r}, {swaps} swaps in "
+                             f"{len(w.controller.reports)} steps")
+    out["loop_thread"] = dict(passes=passes, steps=len(w.controller.reports), swaps=swaps,
+                              results_checked=n_checked, near_tie_rows=n_rule,
+                              refine_with_gate_ms=daemon_ms, health=health,
+                              routes=leg_routes("loop thread", before, mt_table,
+                                                range(1, LOOP_BATCH + 1)),
+                              seconds=time.perf_counter() - t0)
+    log(f"loop thread: controller.start({LOOP_THREAD_INTERVAL_S}) beside {passes} serving "
+        f"passes: {len(w.controller.reports)} steps, {swaps} swaps, no step failed, no "
+        f"loop_error event, health ok; {n_checked} results equal to their version's exact "
+        f"top-5 (near-tie rows {n_rule}); refine_with_gate on the daemon thread ms "
+        f"{[round(x, 3) for x in daemon_ms]}; topk_sim by route "
+        + json.dumps(out["loop_thread"]["routes"]) + f" on {card}")
+    close_world(w)
+
+    # ---- (b) latency under churn: a thread swaps between the table and a
+    # jittered copy every CHURN_SWAP_S while the main thread times batches
+    q_tb = tb_enc.encode(tb_bench.query_tokens)
+    churn_rows = []
+    for base in (native, big):
+        n_t = base.shape[0]
+        jitter = base + np.random.default_rng(0).normal(scale=1e-3, size=base.shape).astype(
+            np.float32)
+        jitter /= np.maximum(np.linalg.norm(jitter, axis=-1, keepdims=True), 1e-9)
+        refs = [dense_top5(q_tb, t, dev) for t in (base, jitter)]
+        nt = tb_bench.n_tools
+        db = ToolsDatabase([ToolRecord(i, f"tool_{i}", tb_bench.desc_tokens[i % nt],
+                                       int(tb_bench.tool_category[i % nt])) for i in range(n_t)],
+                           base)
+        reg = MetricsRegistry()
+        index = ToolIndexManager(db, backend="fused", metrics=reg, device=dev)
+        router = SemanticRouter(db, embed_fn=tb_enc.encode_one, embed_batch_fn=tb_enc.encode,
+                                k=5, index=index, metrics=False, device=dev)
+        content = {db.table_version: 0}
+        n_q = len(tb_bench.query_tokens)
+        before = dict(topk_kernel.launches_by_route)
+
+        def timed_pass():
+            for _ in range(2):
+                router.route_batch(tb_bench.query_tokens[:CHURN_BATCH])
+            ms, served = [], []
+            for i in range(CHURN_CALLS):
+                qi = [(i * CHURN_BATCH + j) % n_q for j in range(CHURN_BATCH)]
+                t = time.perf_counter()
+                res = router.route_batch([tb_bench.query_tokens[j] for j in qi])
+                ms.append((time.perf_counter() - t) * 1e3)
+                served.append((qi, res))
+            # per query as control_bench.py reports it (the batch's time over
+            # its queries); every query of a batch waits the whole batch
+            return (percentile_stats([m / CHURN_BATCH for m in ms]), percentile_stats(ms),
+                    served)
+
+        quiet, quiet_batch, _ = timed_pass()
+        stop = threading.Event()
+        swap_ms = []  # each swap_table call: the host copy and the listeners' rebuild
+
+        def churn():
+            while not stop.is_set():
+                which = (len(swap_ms) + 1) % 2
+                t = time.perf_counter()
+                content[db.swap_table((base, jitter)[which])] = which
+                swap_ms.append((time.perf_counter() - t) * 1e3)
+                time.sleep(CHURN_SWAP_S)
+
+        builds_before = reg.histogram("index_build_ms").count()
+        th = threading.Thread(target=churn, daemon=True)
+        th.start()
+        try:
+            churned, churned_batch, served = timed_pass()
+        finally:
+            stop.set()
+            th.join()
+        n_rule = 0
+        for qi, res in served:
+            versions = {r.table_version for r in res}
+            if len(versions) != 1:
+                raise AssertionError(f"churn T={n_t}: one batch served versions {versions}")
+            ref_idx, ref_sc = refs[content[versions.pop()]]
+            for j, r in zip(qi, res):
+                if r.tools != ref_idx[j].tolist():
+                    if not same_ranking(r.tools, r.scores, ref_idx[j], ref_sc[j], NEAR_TIE):
+                        raise AssertionError(f"churn T={n_t}: {r.tools} vs exact "
+                                             f"{ref_idx[j].tolist()}")
+                    n_rule += 1
+        if churned.p99_ms > BUDGET_MS:
+            raise AssertionError(f"churn T={n_t}: p99 {churned.p99_ms:.3f} ms per query over "
+                                 f"the {BUDGET_MS} ms budget")
+        build = reg.histogram("index_build_ms")
+        row = dict(n_tools=n_t, batch=CHURN_BATCH, calls=CHURN_CALLS, quiet=quiet.as_dict(),
+                   churn=churned.as_dict(), quiet_batch=quiet_batch.as_dict(),
+                   churn_batch=churned_batch.as_dict(), swaps=len(swap_ms),
+                   swap_table_ms=percentile_stats(swap_ms).as_dict(),
+                   index_builds=build.count() - builds_before,
+                   index_build_ms=build.summary(), near_tie_rows=n_rule,
+                   routes=leg_routes(f"churn T={n_t}", before, base, [CHURN_BATCH]))
+        churn_rows.append(row)
+        log(f"churn T={n_t} batch {CHURN_BATCH}: per query p50/p99 quiet {quiet.p50_ms:.4f} / "
+            f"{quiet.p99_ms:.4f} ms, under churn {churned.p50_ms:.4f} / {churned.p99_ms:.4f} ms "
+            f"(budget {BUDGET_MS}); whole batch p50/p99 quiet {quiet_batch.p50_ms:.3f} / "
+            f"{quiet_batch.p99_ms:.3f} ms, under churn {churned_batch.p50_ms:.3f} / "
+            f"{churned_batch.p99_ms:.3f} ms (not gated: each query of a batch waits the "
+            f"batch); {len(swap_ms)} swaps during the run (swap_table ms p50 "
+            f"{row['swap_table_ms']['p50_ms']:.3f}), {row['index_builds']} fused rebuilds, build "
+            f"ms p50 {build.percentile(50):.3f} p99 {build.percentile(99):.3f}; every result "
+            f"the exact top-5 of its version's table (near-tie rows {n_rule}); topk_sim by "
+            f"route " + json.dumps(row["routes"]) + f" on {card}")
+        index.close()
+    out["churn"] = churn_rows
+
+    # ---- (c) the route cache in front of the fused backend
+    t0 = time.perf_counter()
+    cb = make_metatool_like(seed=0, n_queries=400)
+    cb_enc = BagEncoder(cb.vocab, device=dev)
+    table = scale_tool_corpus(cb_enc.encode(cb.desc_tokens), CACHE_TOOLS, seed=0, noise=0.2)
+    records = [ToolRecord(i, f"t{i}", cb.desc_tokens[i % cb.n_tools], 0)
+               for i in range(CACHE_TOOLS)]
+    pool = [np.tile(t, -(-CACHE_QUERY_LEN // len(t)))
+            for t in (cb.query_tokens[i] for i in cb.train_idx)]
+
+    def build(cache, metrics=False):
+        db = ToolsDatabase(list(records), table.copy())
+        return SemanticRouter(db, embed_fn=cb_enc.encode_one, embed_batch_fn=cb_enc.encode,
+                              k=5, backend="fused", metrics=metrics, cache=cache, device=dev)
+
+    def warm(router, batch, cache=None):
+        for m in CACHE_WARMUP:
+            router.route_batch(batch[:m])
+        if cache is not None:
+            cache.clear()
+
+    def traffic(zipf_s, **kw):
+        cfg = TrafficConfig(zipf_s=zipf_s, pool_size=256, query_len=CACHE_QUERY_LEN,
+                            batch_size=32, paraphrase_p=0.35, jitter_tokens=1, seed=3, **kw)
+        return cfg, list(ZipfTrafficGenerator(cfg, pool=pool).stream(CACHE_BATCHES))
+
+    before = dict(topk_kernel.launches_by_route)
+    cache_rows = []
+    for zipf_s in CACHE_ZIPF:
+        _, batches = traffic(zipf_s)
+        cache = SemanticRouteCache(CacheConfig(threshold=0.95), metrics=False)
+        cached, bare = build(cache), build(None)
+        warm(cached, batches[0], cache)
+        warm(bare, batches[0])
+        with no_gc():
+            rep_c = drive(cached, batches, record=True)
+        with no_gc():
+            rep_b = drive(bare, batches, record=True)
+        row = dict(zipf_s=zipf_s, queries=rep_c.queries, hit_rate=rep_c.hit_rate,
+                   qps_cached=rep_c.qps, qps_bare=rep_b.qps, speedup=rep_c.qps / rep_b.qps,
+                   agreement=agreement(rep_c.results, rep_b.results),
+                   p50_cached_ms=rep_c.p50_ms, p99_cached_ms=rep_c.p99_ms,
+                   p50_bare_ms=rep_b.p50_ms, p99_bare_ms=rep_b.p99_ms,
+                   stale_serves=rep_c.stale_serves + rep_b.stale_serves)
+        cache_rows.append(row)
+        log(f"cache s={zipf_s}: hit {row['hit_rate']:.4f}, agreement {row['agreement']:.4f}, "
+            f"qps {row['qps_cached']:.0f} cached vs {row['qps_bare']:.0f} bare "
+            f"({row['speedup']:.3f}x), batch p99 {row['p99_cached_ms']:.3f} vs "
+            f"{row['p99_bare_ms']:.3f} ms, stale {row['stale_serves']} on {card}")
+        cached.close()
+        bare.close()
+    # churn: hot-set rotations plus content-identical swaps, rollbacks and
+    # stage promotions between batches; the gateway's tripwire counts too
+    cfg, batches = traffic(1.1, hot_set_rotate_every=2 * CACHE_SWAP_EVERY)
+    creg = MetricsRegistry()
+    cache = SemanticRouteCache(CacheConfig(threshold=0.95), metrics=False)
+    router = build(cache, metrics=creg)
+    warm(router, batches[0], cache)
+    ops = {"table_swap": 0, "rollback": 0, "stage_swap": 0}
+
+    def control_churn(i):
+        if i == 0 or i % CACHE_SWAP_EVERY:
+            return
+        step = (i // CACHE_SWAP_EVERY) % 3
+        if step == 0:
+            version, live = router.db.snapshot()
+            router.db.swap_table(live.copy(), expect_current=version)
+            ops["table_swap"] += 1
+        elif step == 1 and router.db.retained_versions():
+            router.db.rollback(expect_current=router.db.table_version)
+            ops["rollback"] += 1
+        else:
+            sv, stages = router.stage_set()
+            router.set_stages(stages, expect_version=sv)
+            ops["stage_swap"] += 1
+
+    with no_gc():
+        rep = drive(router, batches, on_batch=control_churn)
+    tripwire = int(creg.counter("route_cache_stale_served_total").value())
+    router.close()
+    s11 = next(r for r in cache_rows if r["zipf_s"] == 1.1)
+    churn_ratio = rep.p99_ms / s11["p99_bare_ms"]
+    stale = sum(r["stale_serves"] for r in cache_rows) + rep.stale_serves
+    out["cache"] = dict(n_tools=CACHE_TOOLS, rows=cache_rows, churn=dict(
+        hit_rate=rep.hit_rate, qps=rep.qps, p50_ms=rep.p50_ms, p99_ms=rep.p99_ms,
+        stale_serves=rep.stale_serves, tripwire=tripwire, ops=ops,
+        invalidated=cache.stats["invalidated"]), churn_p99_over_bare=churn_ratio,
+        stale_total=stale, seconds=time.perf_counter() - t0,
+        routes=leg_routes("cache", before, table, range(1, 33)))
+    log(f"cache churn: hit {rep.hit_rate:.4f}, batch p99 {rep.p99_ms:.3f} ms ({churn_ratio:.3f}x "
+        f"bare; the reference's gate <= {CACHE_CHURN_P99_REF}x, not gated here), ops {ops}, "
+        f"invalidated {cache.stats['invalidated']}, stale {rep.stale_serves}, "
+        f"route_cache_stale_served_total {tripwire}; topk_sim by route (miss blocks of 1-32 "
+        f"queries) " + json.dumps(out["cache"]["routes"]))
+    log(f"cache s=1.1: speedup {s11['speedup']:.3f}x (the reference's gate >= "
+        f"{CACHE_SPEEDUP_REF}x, not gated here), hit {s11['hit_rate']:.4f} (gate >= "
+        f"{CACHE_HIT_FLOOR}), agreement {s11['agreement']:.4f} (gate >= "
+        f"{CACHE_AGREEMENT_FLOOR}), stale {stale} (gate 0)")
+    if stale or tripwire or s11["hit_rate"] < CACHE_HIT_FLOOR or (
+            s11["agreement"] < CACHE_AGREEMENT_FLOOR):
+        raise AssertionError(f"cache gates: stale {stale}, tripwire {tripwire}, hit "
+                             f"{s11['hit_rate']:.4f}, agreement {s11['agreement']:.4f}")
+    return out
+
+
+@contextlib.contextmanager
+def no_gc():
+    """Collector pauses land on arbitrary batches and a short stream's p99
+    is its max: collect first, then pause the collector."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
 def unit_rows(n, d, gen):
     import torch
 
@@ -460,7 +1056,10 @@ def main() -> int:
                            (128, 100_000, 384, 5), (33, 100_003, 384, 25),
                            (8, 100_000, 384, 5), (16, 100_003, 384, 1),
                            (64, 100_000, 384, 5), (64, 100_000, 384, topk_kernel.WGMMA_MAX_K),
-                           (5, 300, 64, 128), (8, 2413, 130, 25)]:
+                           (5, 300, 64, 128), (8, 2413, 130, 25),
+                           # the loop phase's: 199 tools, the cache's 25,000
+                           (64, 199, 384, 5), (8, 199, 384, 5), (32, 25_000, 384, 5),
+                           (8, 25_000, 384, 5)]:
         q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
         check_routes("random", q, t, k)
         if (n_q, n_t, k) == (33, 100_003, 25):  # all-zero rows, as the gateway pads a batch
@@ -1178,6 +1777,23 @@ def main() -> int:
     if pipe_routes["select"] == 0 or pipe_launches == 0:
         raise AssertionError(f"the pipeline path launched topk_sim {pipe_routes}")
 
+    # ------------------------------------------------------------------ 8. loop
+    # the online refinement loop, the churn legs and the route cache, all
+    # through the fused backend; this path's launches are counted from here
+    for mod in kernel_modules.values():
+        mod.launches = 0
+    topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+    t_loop = time.perf_counter()
+    loop = loop_phase(dev, card, bench, enc, native, big)
+    loop_launches = topk_kernel.launches
+    loop_routes = dict(topk_kernel.launches_by_route)
+    loop["seconds"] = time.perf_counter() - t_loop
+    log(f"loop path: {loop['seconds']:.1f} s, topk_sim launches {loop_launches}, by route "
+        + json.dumps(loop_routes))
+    if loop_launches == 0 or any(mod.launches for name, mod in kernel_modules.items()
+                                 if name != "topk_sim"):
+        raise AssertionError(f"the loop path launched topk_sim {loop_routes}")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -1403,7 +2019,8 @@ def main() -> int:
 
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
-        replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=main_launches,
+        replaces="src/repro/kernels/topk_sim/kernel.py:89",
+        launches=main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches,
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -1412,9 +2029,9 @@ def main() -> int:
         index_agreement="exact except reordering inside near-ties (rows counted in checks); "
                         "the wgmma route bitwise equal to the split route",
         launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"],
-                          "pipeline": pipe_launches},
+                          "pipeline": pipe_launches, "loop": loop_launches},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
-                           "pipeline": pipe_routes},
+                           "pipeline": pipe_routes, "loop": loop_routes},
         rescored={"serve": serve_rescored},
         crossover=crossover, host_vs_device=host_split,
     ), dict(
@@ -1457,7 +2074,8 @@ def main() -> int:
                    model_check_max_abs_err=model_err, init_fan_in=conditioning,
                    pipeline=dict(rows=pipe_rows, serve_near_tie_rows=pipe_serve,
                                  rerank_candidates_near_tie_rows=n_cand_rule,
-                                 seconds=pipe_s))
+                                 seconds=pipe_s),
+                   loop=loop)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -79,7 +79,7 @@ class ToolIndexManager:
         backend: str = "dense",
         watch_swaps: bool = True,
         metrics: Union[MetricsRegistry, bool, None] = None,
-        bus: Optional["EventBus"] = None,  # repro.obs.events (not ported yet)
+        bus: Optional["EventBus"] = None,  # repro_torch.obs.events
         device: Union[str, torch.device, None] = None,
     ):
         from repro_torch.index import BACKENDS  # call-time import: no module cycle

@@ -24,9 +24,15 @@ finishes on the stages it started with; `set_stages` is compare-and-swap
 (ConflictError on a lost race), superseded sets are retained in a bounded
 history, and `rollback_stages` restores one.
 
-The `cache=`, `tracer=`, `bus=` and `quality=` hooks keep the reference's
-call sites; their modules are not ported yet, so they are exercised with
-`None` only.
+Telemetry and reuse hooks, as in the reference: `cache=` a
+`repro_torch.cache.SemanticRouteCache` probed after embed (host numpy keys;
+hit rows skip the adapter, the index and the re-ranker; every served entry's
+version stamps re-checked against the live pair), `tracer=` a
+`repro_torch.obs.trace.RouteTracer` (sampled per-batch spans), `bus=` a
+`repro_torch.obs.events.EventBus` (stage swaps, outcome drops, and the owned
+index manager's rebuilds) and `quality=` a
+`repro_torch.obs.quality.QualityMonitor` fed the raw [Q, D] numpy query block
+for label-free drift.
 """
 from __future__ import annotations
 
@@ -134,10 +140,10 @@ class SemanticRouter:
         stages: Optional[StageSet] = None,
         stage_history_limit: int = 4,
         metrics: Union[MetricsRegistry, bool, None] = None,
-        tracer: Optional["RouteTracer"] = None,  # obs.trace (not ported yet)
-        bus: Optional["EventBus"] = None,  # obs.events (not ported yet)
-        quality: Optional["QualityMonitor"] = None,  # obs.quality (not ported yet)
-        cache: Optional["SemanticRouteCache"] = None,  # cache (not ported yet)
+        tracer: Optional["RouteTracer"] = None,  # repro_torch.obs.trace
+        bus: Optional["EventBus"] = None,  # repro_torch.obs.events
+        quality: Optional["QualityMonitor"] = None,  # repro_torch.obs.quality
+        cache: Optional["SemanticRouteCache"] = None,  # repro_torch.cache
         device: Union[str, torch.device, None] = None,
     ):
         self.db = db

@@ -549,3 +549,146 @@ def test_new_kernels_reject_bad_inputs(cuda_device):
     ):
         with pytest.raises(ValueError):
             bad()
+
+
+def _random_router_world(cuda_device, n_t, n_q=64, seed=0, **router_kw):
+    """A fused-backend router on the card over `n_t` random tools, and
+    `n_q` queries: (router, db, encoder, queries)."""
+    from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    rng = np.random.default_rng(seed)
+    vocab = SimpleNamespace(word_vecs=rng.normal(size=(4000, 384)).astype(np.float32))
+    enc = BagEncoder(vocab, device=cuda_device)
+    desc = [rng.integers(0, 4000, 12) for _ in range(n_t)]
+    queries = [rng.integers(0, 4000, 8) for _ in range(n_q)]
+    db = ToolsDatabase([ToolRecord(i, f"t{i}", desc[i], 0) for i in range(n_t)],
+                       enc.encode(desc), history_limit=2)
+    router_kw.setdefault("metrics", False)
+    router = SemanticRouter(db, embed_fn=enc.encode_one, embed_batch_fn=enc.encode, k=5,
+                            backend="fused", device=cuda_device, **router_kw)
+    return router, db, enc, queries
+
+
+@pytest.mark.parametrize("n_t", [2413, 25_000])
+def test_fused_router_under_concurrent_swaps(cuda_device, n_t):
+    """A thread swaps between the table and a jittered copy every 2 ms
+    while the main thread serves batches of 64 through the fused backend:
+    the index is rebuilt on the swapping thread, and every result must be
+    the dense top-5 of the table its `table_version` names (float64
+    similarities; near-ties within 1e-5 may reorder)."""
+    import threading
+    import time
+
+    router, db, enc, queries = _random_router_world(cuda_device, n_t)
+    base = db.embeddings.copy()
+    jitter = base + np.random.default_rng(1).normal(scale=1e-3, size=base.shape).astype(
+        np.float32)
+    jitter /= np.linalg.norm(jitter, axis=1, keepdims=True)
+    tables = {0: base}
+    lock, stop = threading.Lock(), threading.Event()
+
+    def churn():
+        i = 0
+        while not stop.is_set():
+            new = (jitter, base)[i % 2]
+            with lock:
+                tables[db.swap_table(new)] = new
+            i += 1
+            time.sleep(0.002)
+
+    t = threading.Thread(target=churn, daemon=True)
+    t.start()
+    q_emb = enc.encode(queries).astype(np.float64)
+    try:
+        seen = set()
+        for _ in range(32):
+            results = router.route_batch(queries)
+            versions = {r.table_version for r in results}
+            assert len(versions) == 1
+            v = versions.pop()
+            seen.add(v)
+            with lock:
+                sims = q_emb @ tables[v].astype(np.float64).T
+            for j, r in enumerate(results):
+                order = np.argsort(-sims[j], kind="stable")[:5]
+                _assert_same_up_to_near_ties(r.tools, r.scores, order.tolist(),
+                                             sims[j][order].tolist())
+    finally:
+        stop.set()
+        t.join()
+    assert len(seen) > 1 and router.index.last_path() == "index:fused"
+    assert router.index.stats["build_failures"] == 0
+    router.close()
+
+
+def test_route_cache_over_the_fused_backend(cuda_device):
+    """A cached fused router and a bare one serve the same Zipf stream of
+    exact repeats with content-identical swaps between batches: every hit
+    equals the bare router's result, nothing stale is served, and the hit
+    rate is high once the hot set is seen."""
+    from repro_torch.cache import SemanticRouteCache
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.traffic import TrafficConfig, ZipfTrafficGenerator, drive
+
+    registry = MetricsRegistry()
+    cached, db, _, queries = _random_router_world(
+        cuda_device, 25_000, cache=SemanticRouteCache(metrics=registry), metrics=registry)
+    bare, db_bare, _, _ = _random_router_world(cuda_device, 25_000)
+    cfg = TrafficConfig(zipf_s=1.1, pool_size=64, query_len=24, batch_size=32,
+                        paraphrase_p=0.0, seed=3)
+    pool = [np.tile(q, 3) for q in queries]
+    batches = list(ZipfTrafficGenerator(cfg, pool=pool).stream(40))
+
+    def swapper(d):
+        def swap(i):
+            if i and i % 10 == 0:
+                v, live = d.snapshot()
+                d.swap_table(live.copy(), expect_current=v)
+        return swap
+
+    rep = drive(cached, batches, on_batch=swapper(db), record=True)
+    ref = drive(bare, batches, on_batch=swapper(db_bare), record=True)
+    assert rep.stale_serves == 0 and rep.hit_rate > 0.5
+    assert registry.counter("route_cache_stale_served_total").value() == 0
+    for got, want in zip(rep.results, ref.results):
+        for a, b in zip(got, want):
+            assert a.tools == b.tools and a.table_version == b.table_version
+    assert cached.index.last_path() == "index:fused"
+    cached.close()
+    bare.close()
+
+
+def test_controller_refines_on_the_card(cuda_device):
+    """`RefinementController(device=card)` runs the port's refine_with_gate
+    on the card from the store's numpy window and swaps the host copy of the
+    refined table: the same decision and table (within 1e-5) as the same
+    step on the CPU."""
+    from repro_torch.control import ControllerConfig, OutcomeStore, RefinementController
+    from repro_torch.router.gateway import OutcomeEvent
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    router, db, enc, queries = _random_router_world(cuda_device, 300, n_q=400)
+    rng = np.random.default_rng(2)
+    truth = rng.integers(0, 300, size=len(queries))
+    results = router.route_batch(queries)
+    events = []
+    for qi, (q, r) in enumerate(zip(queries, results)):
+        tools = list(r.tools) + [int(truth[qi])]
+        events += [OutcomeEvent(q, t, int(t == truth[qi]), 0.0) for t in tools]
+    outcomes = []
+    for where in (cuda_device, "cpu"):
+        d = ToolsDatabase([ToolRecord(i, f"t{i}", np.arange(2), 0) for i in range(300)],
+                          db.embeddings.copy())
+        store = OutcomeStore(n_tools=300)
+        ctl = RefinementController(d, store, enc.encode, device=where,
+                                   config=ControllerConfig(min_events=1, min_queries=10))
+        store.ingest(events)
+        rep = ctl.step()
+        assert rep.triggered and rep.accepted is not None
+        outcomes.append((rep.accepted, rep.swapped, d.embeddings.copy()))
+    (acc_a, sw_a, t_a), (acc_b, sw_b, t_b) = outcomes
+    assert (acc_a, sw_a) == (acc_b, sw_b)
+    np.testing.assert_allclose(t_a, t_b, atol=1e-5, rtol=0)
+    router.close()

@@ -7,23 +7,31 @@ serves the kernel's plain version). Bare, with the adapter, with the
 re-ranker, with candidate masks, at batch sizes 1, 3, 8 and 13 (so the
 power-of-two padding is exercised), and across a CAS table swap and
 `set_stages`/`rollback_stages`. Tools, table_version, stage_version and
-cache_hit must be identical; scores within atol=1e-5.
+cache_hit must be identical; scores within atol=1e-5. With a route cache in
+front of each router the same rows must hit, across swaps and stage
+promotions; with seeded tracers and a bus on each, the same batches must be
+sampled and the same events published.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro.cache import SemanticRouteCache as JaxRouteCache
 from repro.core.features import OutcomeFeaturizer as JaxFeaturizer
 from repro.embedding.bag_encoder import BagEncoder as JaxBagEncoder
+from repro.obs import EventBus as JaxEventBus
+from repro.obs import RouteTracer as JaxRouteTracer
 from repro.router.gateway import SemanticRouter as JaxRouter
 from repro.router.stages import StageSet as JaxStageSet
 from repro.router.tooldb import ToolRecord as JaxToolRecord
 from repro.router.tooldb import ToolsDatabase as JaxToolsDatabase
 from repro_torch import convert
+from repro_torch.cache import SemanticRouteCache
 from repro_torch.core import reranker
 from repro_torch.core.adapter import DIM, HIDDEN
 from repro_torch.core.features import OutcomeFeaturizer
 from repro_torch.embedding.bag_encoder import BagEncoder
+from repro_torch.obs import EventBus, RouteTracer
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.router.gateway import RouteResult, SemanticRouter
 from repro_torch.router.tooldb import ConflictError, ToolRecord, ToolsDatabase
@@ -59,7 +67,8 @@ def _jnp(params):
 class _Pair:
     """A JAX router and a port router over identical databases."""
 
-    def __init__(self, bench, jax_backend, torch_backend, k=5):
+    def __init__(self, bench, jax_backend, torch_backend, k=5, jax_hooks=None,
+                 torch_hooks=None):
         table = JaxBagEncoder(bench.vocab).encode(bench.desc_tokens)
         self.table = table
         n = bench.n_tools
@@ -72,10 +81,11 @@ class _Pair:
         jenc = JaxBagEncoder(bench.vocab)
         tenc = BagEncoder(bench.vocab, device=CPU)
         self.jax = JaxRouter(self.jdb, embed_fn=jenc.encode_one, embed_batch_fn=jenc.encode,
-                             k=k, backend=jax_backend, metrics=False)
+                             k=k, backend=jax_backend, metrics=False, **(jax_hooks or {}))
         self.torch = SemanticRouter(self.tdb, embed_fn=tenc.encode_one,
                                     embed_batch_fn=tenc.encode, k=k, backend=torch_backend,
-                                    metrics=MetricsRegistry(), device=CPU)
+                                    metrics=MetricsRegistry(), device=CPU,
+                                    **(torch_hooks or {}))
 
     def compare(self, queries, masks=None):
         jr = self.jax.route_batch(queries, masks)
@@ -213,3 +223,80 @@ def test_route_single_and_empty_and_outcomes(small_bench):
     reg = pair.torch._obs.registry
     assert reg.counter("route_requests_total").value() == 1
     assert reg.histogram("route_phase_ms", phase="score").count() >= 1
+
+
+def _near_duplicates(bench, rng, n):
+    """Repeats and near-duplicates (one token dropped) of a few queries."""
+    base = [bench.query_tokens[j] for j in range(6)]
+    out = []
+    for _ in range(n):
+        toks = base[rng.integers(len(base))]
+        if rng.random() < 0.5 and len(toks) > 3:
+            toks = np.delete(toks, rng.integers(len(toks)))
+        out.append(np.asarray(toks))
+    return out
+
+
+@pytest.mark.parametrize("jax_backend,torch_backend", BACKEND_PAIRS)
+@pytest.mark.parametrize("stages", ["bare", "adapter"])
+def test_route_batch_with_cache_matches_jax(small_bench, jax_backend, torch_backend, stages):
+    pair = _Pair(small_bench, jax_backend, torch_backend,
+                 jax_hooks={"cache": JaxRouteCache(metrics=False)},
+                 torch_hooks={"cache": SemanticRouteCache(metrics=False)})
+    if stages != "bare":
+        js, ts = _stage_pairs(small_bench, pair.table, stages)
+        pair.jax.set_stages(js, expect_version=0)
+        pair.torch.set_stages(ts, expect_version=0)
+    rng = np.random.default_rng(1)
+    hits = 0
+    for step in range(12):
+        if step == 5:
+            moved = pair.table[np.random.default_rng(0).permutation(small_bench.n_tools)]
+            for db in (pair.jdb, pair.tdb):
+                db.swap_table(moved, expect_current=0)
+        if step == 8:
+            for r in (pair.jax, pair.torch):
+                sv, st = r.stage_set()
+                r.set_stages(st, expect_version=sv)
+        results = pair.compare(_near_duplicates(small_bench, rng, 1 + step % 8))
+        hits += sum(r.cache_hit for r in results)
+    assert hits > 0
+    assert pair.torch.cache.stats == pair.jax.cache.stats
+    reg = pair.torch._obs.registry
+    assert reg.counter("route_cache_stale_served_total").value() == 0
+    # a masked batch bypasses both caches
+    mask = small_bench.candidate_mask()[:3]
+    assert not any(r.cache_hit for r in pair.compare(small_bench.query_tokens[:3], mask))
+    pair.torch.close()
+
+
+@pytest.mark.parametrize("jax_backend,torch_backend", BACKEND_PAIRS)
+def test_tracer_and_bus_match_jax(small_bench, jax_backend, torch_backend):
+    jbus, tbus = JaxEventBus(), EventBus()
+    pair = _Pair(small_bench, jax_backend, torch_backend,
+                 jax_hooks={"tracer": JaxRouteTracer(sample_every=2, seed=3), "bus": jbus},
+                 torch_hooks={"tracer": RouteTracer(sample_every=2, seed=3), "bus": tbus})
+    jbus.watch_db(pair.jdb)
+    tbus.watch_db(pair.tdb)
+    start = 0
+    for step, n in enumerate(BATCHES * 3):
+        if step == 4:
+            for db in (pair.jdb, pair.tdb):
+                db.swap_table(pair.table[::-1].copy(), expect_current=0)
+        if step == 7:
+            js, ts = _stage_pairs(small_bench, pair.table, "adapter")
+            pair.jax.set_stages(js, expect_version=0)
+            pair.torch.set_stages(ts, expect_version=0)
+        pair.compare(small_bench.query_tokens[start:start + n])
+        start += n
+    jt, tt = pair.jax._tracer.traces(), pair.torch._tracer.traces()
+    assert len(tt) == len(jt) > 2
+    for a, b in zip(jt, tt):
+        assert (a.trace_id, a.batch_size, a.bucket, a.table_version, a.stage_version) == (
+            b.trace_id, b.batch_size, b.bucket, b.table_version, b.stage_version)
+        assert b.path == f"index:{torch_backend}" and a.path == f"index:{jax_backend}"
+        assert [n for n, _ in a.spans] == [n for n, _ in b.spans]
+    assert [(e.kind, e.plane) for e in jbus.events()] == [(e.kind, e.plane)
+                                                          for e in tbus.events()]
+    assert {"swap", "stage_swap", "rebuild_finish"} <= set(tbus.counts())
+    pair.torch.close()

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch` imports JAX or `repro`,
-and its entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of `repro_torch` imports JAX or `repro`
+(nor `msgpack` or `zstandard`, which the card's machine lacks), and its
+entry points run on the card unless the caller asks for the CPU."""
 import os
 import pkgutil
 import subprocess
@@ -14,6 +15,7 @@ import torch
 import repro_torch
 from repro_torch.embedding.bag_encoder import BagEncoder
 from repro_torch.configs import get_config
+from repro_torch.control import OutcomeStore, RefinementController
 from repro_torch.core.adapter import train_adapter
 from repro_torch.core.evaluate import BenchmarkEvaluator
 from repro_torch.core.pipeline import OATSPipeline, PipelineConfig
@@ -47,16 +49,35 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.optim.adamw", "repro_torch.core.adapter",
             "repro_torch.core.reranker", "repro_torch.core.deployment",
             "repro_torch.core.baselines", "repro_torch.core.pipeline",
-            "repro_torch.core.evaluate"} <= set(modules)
+            "repro_torch.core.evaluate", "repro_torch.cache.route_cache",
+            "repro_torch.checkpoint.msgpack_ckpt", "repro_torch.control.outcome_store",
+            "repro_torch.control.guard", "repro_torch.control.controller",
+            "repro_torch.obs.summary", "repro_torch.obs.events", "repro_torch.obs.trace",
+            "repro_torch.obs.quality", "repro_torch.obs.timeseries", "repro_torch.obs.health",
+            "repro_torch.router.latency", "repro_torch.traffic.generator",
+            "repro_torch.traffic.harness"} <= set(modules)
+    blocked = ("jax", "repro", "msgpack", "zstandard")
     code = (
-        "import importlib, sys\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['repro'] = None\n"
+        "import importlib, sys, tempfile\n"
+        f"for name in {blocked!r}:\n"
+        "    sys.modules[name] = None\n"
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "leaked = sorted(m for m in sys.modules if sys.modules[m] is not None\n"
-        "                and (m in ('jax', 'repro') or m.startswith(('jax.', 'repro.'))))\n"
+        f"                and m.split('.')[0] in {blocked!r})\n"
         "assert not leaked, leaked\n"
+        # the outcome window persists without msgpack or zstandard
+        "import numpy as np\n"
+        "from repro_torch.control import OutcomeStore\n"
+        "from repro_torch.router.gateway import OutcomeEvent\n"
+        "store = OutcomeStore(n_tools=3, capacity=2)\n"
+        "for i in range(3):\n"
+        "    store.append(OutcomeEvent(np.arange(i + 1), i, i % 2, float(i)))\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    store.save(d, step=1)\n"
+        "    back = OutcomeStore.restore(d)\n"
+        "assert back.window_fingerprint() == store.window_fingerprint()\n"
+        "assert [e.query_tokens.tolist() for e in back.snapshot_events()] == [[0, 1], [0, 1, 2]]\n"
         "print('imported', len(sys.modules))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -97,6 +118,7 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: train_reranker(np.zeros((4, 7), np.float32), np.zeros(4, np.float32)),
         lambda: train_adapter(table, table, (np.zeros(0, np.int64),) * 3, table,
                               np.eye(4, dtype=np.float32)),
+        lambda: RefinementController(db, OutcomeStore(n_tools=4), lambda t: table[:len(t)]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()
