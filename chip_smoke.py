@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, model pool, offline OATS
-pipeline and online refinement loop once on one NVIDIA card.
+pipeline, online refinement loop, learning plane and IVF backend once on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -85,6 +86,28 @@ package `repro`. Phases, each of which fails the run by raising:
                its block sizes: cluster at 199 and 2,413 tools, wgmma for
                the 64-query batches at 100,000, split and wgmma for the
                cache's miss blocks of 1-32 queries at 25,000;
+  9. learn   — (run before 7) benchmarks/learn_bench.py's density sweep
+               through fused routers (MetaTool-like, 600 tools, windows
+               of 0.2 / 0.5 / 1.0 of 2,800 train queries, 400 test
+               queries, five trainer seeds): refine-only NDCG@5 within
+               S1_NDCG_ATOL of the JAX package's, the +adapter and
+               +reranker means over the seeds inside its bands, no gated
+               promotion regressing past scenarios.REGRESSION_TOL; trainer seconds
+               and gate margins under GATE_TIE printed; then
+               examples/live_loop.py --stages' three acts with their
+               asserts, the learning controller on its daemon thread
+               beside serving (no failed step, no train_failed, no
+               loop_error, health ok), and batches of 64 at 2,413 tools
+               stage-free and with the adapter and the re-ranker live
+               (C = 25: cluster);
+ 10. ivf     — (run before 7) IVF over the 100,000-tool table: cold and
+               warm builds (seconds, k-means iterations), Recall@5 >=
+               0.98 against the fused backend's exact top-5, batches of 64
+               and 8 in turns with a fused router, and a swap and a
+               rollback under load with async_rebuild (batches served
+               exact and by the index counted, every result's scores the
+               similarities of the table its version names, no build
+               failure);
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -154,10 +177,8 @@ PIPELINE_PRESETS = ("se", "oats-s1", "oats-s2", "oats-s3")
 S1_NDCG_ATOL = 1e-3  # card against the port's CPU fit: matmul summation orders differ
 RERANK_K = 26  # the gateway asks the backend for C = 5k = 130 > 128 candidates
 # the online loop (phase 8), at benchmarks/control_bench.py's full settings:
-# MetaTool-like (seed 0, 2,400 queries, 199 tools), 6 windows of train
-# queries routed in batches of 64 with every routed tool's outcome recorded,
-# ControllerConfig(min_events=1000, min_queries=30), GuardConfig(min_samples=32),
-# held-out NDCG@5 over 400 test queries after each step. The JAX package's
+# MetaTool-like (seed 0, 2,400 queries, 199 tools) through
+# `repro_torch.scenarios` (its LOOP_* settings). The JAX package's
 # trajectory as (events, table_version, swapped, NDCG@5), the first entry
 # before any step (measured on a CPU by `python tests/test_torch_control.py`;
 # the card's machine has no JAX).
@@ -165,9 +186,6 @@ LOOP_TRAJECTORY = (
     (0, 0, False, 0.804511), (1400, 1, True, 0.858980), (2800, 2, True, 0.884811),
     (4200, 2, False, 0.884811), (5600, 2, False, 0.884811), (7000, 3, True, 0.894755),
     (8400, 3, False, 0.894755))
-LOOP_QUERIES, LOOP_WINDOWS, LOOP_BATCH, LOOP_EVAL = 2400, 6, 64, 400
-LOOP_MIN_EVENTS, LOOP_MIN_QUERIES, LOOP_MIN_SAMPLES = 1000, 30, 32
-LOOP_ACT2_BASELINE = 300  # labelled test queries served on the good table first
 LOOP_THREAD_INTERVAL_S, LOOP_THREAD_DEADLINE_S, LOOP_THREAD_PASSES = 0.05, 120.0, 6
 BUDGET_MS = 10.0  # the paper's per-query routing budget
 CHURN_BATCH, CHURN_CALLS, CHURN_SWAP_S = 64, 64, 0.002  # control_bench's churn leg
@@ -177,6 +195,18 @@ CACHE_QUERY_LEN, CACHE_SWAP_EVERY = 24, 15
 CACHE_WARMUP = (1, 2, 4, 8, 16, 32)
 CACHE_HIT_FLOOR, CACHE_AGREEMENT_FLOOR = 0.90, 0.98  # gates (s = 1.1)
 CACHE_SPEEDUP_REF, CACHE_CHURN_P99_REF = 2.0, 2.5  # the reference's gates: printed only
+# the learning plane (phase 9), at benchmarks/learn_bench.py's full settings
+# (`repro_torch.scenarios`' LEARN_* settings), held to the JAX package's
+# readings there (`scenarios.LEARN_REFINE_ONLY`, `scenarios.LEARN_BANDS`);
+# the port's means are over trainer seeds 0-4
+LEARN_SEEDS = tuple(range(5))
+GATE_TIE = 1e-6  # a gate margin this small may flip between devices: counted
+LEARN_LATENCY_CALLS = 64  # learn_bench's all-stages leg: batches of 64 at 2,413 tools
+LEARN_DAEMON_INTERVAL_S, LEARN_DAEMON_DEADLINE_S = 0.05, 180.0
+# IVF (phase 10) at N_TOOLS, the default IVFConfig (C ~ 4 sqrt(T), nprobe 8)
+IVF_RECALL_FLOOR = 0.98  # tests/test_index.py's floor against exact
+IVF_CALLS = 64  # timed batches per size
+IVF_SWAP_BATCHES = 8  # index-served batches before and after each swap
 
 
 def log(*parts) -> None:
@@ -361,137 +391,6 @@ def plain_kernels():
         layers.flash_attention, ssm.ssd_ops = originals
 
 
-def port_pkg(device):
-    """The port's side of the loop driver below, on `device`. The driver
-    takes a package as a namespace, so a test can hand it the JAX
-    package's side too."""
-    import repro_torch.control as control
-    from repro_torch.embedding.bag_encoder import BagEncoder
-    from repro_torch.index import ToolIndexManager
-    from repro_torch.obs import EventBus, QualityMonitor
-    from repro_torch.router.gateway import SemanticRouter
-    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
-
-    return types.SimpleNamespace(
-        control=control, Router=SemanticRouter, DB=ToolsDatabase, Record=ToolRecord,
-        Bus=EventBus, Quality=QualityMonitor, Index=ToolIndexManager,
-        encoder=lambda vocab: BagEncoder(vocab, device=device),
-        device_kw={"device": device})
-
-
-def loop_world(pkg, bench, table, backend="dense", *, min_events=LOOP_MIN_EVENTS,
-               min_queries=LOOP_MIN_QUERIES, min_samples=LOOP_MIN_SAMPLES, guard_k=5,
-               tolerance=0.02, wired=True, metrics=False, tracer=None):
-    """One package's §7.2 serving + control plane over `table`: a router
-    wired to an outcome store, a table guard and a refinement controller
-    (which refines on the router's device) and, when `wired`, to a bus and
-    a quality monitor that watch the database before the index does. With
-    a `metrics` registry the index manager is built here and records its
-    build times there; else the router owns it."""
-    enc = pkg.encoder(bench.vocab)
-    db = pkg.DB([pkg.Record(i, f"tool_{i}", bench.desc_tokens[i], int(bench.tool_category[i]))
-                 for i in range(bench.n_tools)], table.copy())
-    bus = quality = None
-    if wired:
-        bus = pkg.Bus()
-        quality = pkg.Quality(bus=bus)
-        bus.watch_db(db)
-        quality.watch_db(db)
-    store = pkg.control.OutcomeStore(n_tools=len(db), capacity=200_000)
-    index = None
-    if metrics is not False:
-        index = pkg.Index(db, backend=backend, metrics=metrics, bus=bus, **pkg.device_kw)
-    router = pkg.Router(db, embed_fn=enc.encode_one, embed_batch_fn=enc.encode, k=5,
-                        outcome_sink=store.append, backend=backend, index=index,
-                        metrics=metrics, bus=bus, quality=quality, tracer=tracer,
-                        **pkg.device_kw)
-    guard = pkg.control.TableGuard(
-        db, pkg.control.GuardConfig(k=guard_k, min_samples=min_samples, tolerance=tolerance),
-        bus=bus)
-    controller = pkg.control.RefinementController(
-        db, store, enc.encode, routers=[router],
-        config=pkg.control.ControllerConfig(min_events=min_events, min_queries=min_queries),
-        guard=guard, bus=bus, **pkg.device_kw)
-    return types.SimpleNamespace(enc=enc, db=db, bus=bus, quality=quality, store=store,
-                                 index=router.index, router=router, guard=guard,
-                                 controller=controller)
-
-
-def close_world(w):
-    w.router.close()
-    w.index.close()
-
-
-def serve_window(w, bench, idx, batch_size=LOOP_BATCH, check=None):
-    """Route `idx` in batches, record every routed tool's outcome, feed the
-    guard and the quality monitor; `check(idx, results)` sees each batch."""
-    for lo in range(0, len(idx), batch_size):
-        chunk = idx[lo:lo + batch_size]
-        results = w.router.route_batch([bench.query_tokens[qi] for qi in chunk])
-        if check is not None:
-            check(chunk, results)
-        for qi, res in zip(chunk, results):
-            for t in res.tools:
-                w.router.record_outcome(bench.query_tokens[qi], t, int(t in bench.relevant[qi]))
-            w.guard.observe(res.table_version, res.tools, bench.relevant[qi])
-            if w.quality is not None:
-                w.quality.observe(res.tools, bench.relevant[qi])
-
-
-def heldout_ndcg(w, bench, n_eval=LOOP_EVAL):
-    import numpy as np
-
-    from repro_torch.metrics.retrieval import ndcg_at_k
-
-    idx = bench.test_idx[:n_eval]
-    results = w.router.route_batch([bench.query_tokens[qi] for qi in idx])
-    return float(np.mean([ndcg_at_k(r.tools, bench.relevant[qi], 5)
-                          for qi, r in zip(idx, results)]))
-
-
-def run_loop(w, bench, n_windows=LOOP_WINDOWS, n_eval=LOOP_EVAL):
-    """The §7.2 loop (`benchmarks/control_bench.py`'s first leg): the series
-    [(events, table_version, swapped, NDCG@5)] as LOOP_TRAJECTORY, the
-    first before any step; the steps' reports; the live table after each."""
-    import numpy as np
-
-    series = [(0, w.db.table_version, False, heldout_ndcg(w, bench, n_eval))]
-    reports, tables = [], []
-    for idx in np.array_split(bench.train_idx, n_windows):
-        serve_window(w, bench, idx)
-        rep = w.controller.step()
-        reports.append(rep)
-        tables.append(w.db.embeddings.copy())
-        series.append((w.store.total_ingested, rep.table_version, rep.swapped,
-                       heldout_ndcg(w, bench, n_eval)))
-    return series, reports, tables
-
-
-def inject_and_roll_back(w, bench, n_baseline=LOOP_ACT2_BASELINE, after_inject=None):
-    """`examples/live_loop.py`'s act 2: labelled traffic on the good table,
-    then a scrambled and shifted table bypasses the gate (`after_inject()`
-    runs on it); shadow windows until the guard rolls it back. Returns the
-    guard's actions."""
-    import numpy as np
-
-    serve_window(w, bench, bench.test_idx[:n_baseline])
-    rng = np.random.default_rng(0)
-    bad = w.db.embeddings.copy()
-    rng.shuffle(bad, axis=0)  # tool vectors scrambled across tools
-    bad += 3.0 * bad.std()  # and shifted off the query population
-    w.db.swap_table(bad)
-    if after_inject is not None:
-        after_inject()
-    actions = []
-    for idx in np.array_split(bench.test_idx, 3):
-        serve_window(w, bench, idx)
-        rep = w.controller.step()
-        actions.append(rep.guard.action)
-        if rep.guard.action == "rolled_back":
-            break
-    return actions
-
-
 def timed_on_card(fn, into):
     """`fn`, appending each call's milliseconds, between card syncs, to `into`."""
     import torch
@@ -517,12 +416,31 @@ def dense_top5(q_emb, table, device):
     return idx.cpu().numpy(), vals.cpu().numpy()
 
 
+def check_leg_routes(leg, before, table, sizes, dev, k=5):
+    """The leg's topk_sim launches by route since `before`; blocks of the
+    sizes in `sizes` over `table`'s rows (k candidates) must have taken the
+    routes topk_route gives them, each of those routes at least once."""
+    import torch
+
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+
+    got = {r: n - before[r] for r, n in topk_kernel.launches_by_route.items()}
+    n_t, d = table.shape
+    probe = torch.empty((1, d), device=dev)  # 16-byte aligned, as the served tensors
+    want = {topk_kernel.topk_route(n, n_t, d, k, probe, probe) for n in sizes}
+    if {r for r, n in got.items() if n} != want:
+        raise AssertionError(f"{leg}: topk_sim launched {got}, expected the routes "
+                             f"{sorted(want)} that topk_route gives {n_t} rows")
+    return got
+
+
 def loop_phase(dev, card, tb_bench, tb_enc, native, big):
     """Phase 8: the online refinement loop on the card. Returns the summary;
     raises on any failed check."""
     import numpy as np
     import torch
 
+    from repro_torch import scenarios as scn
     from repro_torch.cache import CacheConfig, SemanticRouteCache
     from repro_torch.core.refine import refine_with_gate
     from repro_torch.data.benchmarks import make_metatool_like, scale_tool_corpus
@@ -536,35 +454,23 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
     from repro_torch.traffic import TrafficConfig, ZipfTrafficGenerator, agreement, drive
 
     out = {}
-    pkg = port_pkg(dev)
-
-    def leg_routes(leg, before, table, sizes):
-        """The leg's topk_sim launches by route since `before`; blocks of
-        the sizes in `sizes` over `table`'s rows must have taken the routes
-        topk_route gives them, each of those routes at least once."""
-        got = {r: n - before[r] for r, n in topk_kernel.launches_by_route.items()}
-        n_t, d = table.shape
-        probe = torch.empty((1, d), device=dev)  # 16-byte aligned, as the served tensors
-        want = {topk_kernel.topk_route(n, n_t, d, 5, probe, probe) for n in sizes}
-        if {r for r, n in got.items() if n} != want:
-            raise AssertionError(f"{leg}: topk_sim launched {got}, expected the routes "
-                                 f"{sorted(want)} that topk_route gives {n_t} rows")
-        return got
+    pkg = scn.port_pkg(dev)
+    leg_routes = functools.partial(check_leg_routes, dev=dev)
 
     # ---- (a) the §7.2 loop on the card, against the JAX trajectory and the
     # same loop through the port on the CPU
     t0 = time.perf_counter()
     before = dict(topk_kernel.launches_by_route)
-    mt = make_metatool_like(seed=0, n_queries=LOOP_QUERIES)
+    mt = make_metatool_like(seed=0, n_queries=scn.LOOP_QUERIES)
     mt_table = BagEncoder(mt.vocab, device="cpu").encode(mt.desc_tokens)
     reg = MetricsRegistry()
     tracer = RouteTracer(sample_every=16, seed=0)
-    w = loop_world(pkg, mt, mt_table, "fused", metrics=reg, tracer=tracer)
+    w = scn.loop_world(pkg, mt, mt_table, "fused", metrics=reg, tracer=tracer)
     refine_ms = []
     w.controller.refine_fn = timed_on_card(refine_with_gate, refine_ms)
-    on_card, card_reports, _ = run_loop(w, mt)
-    cpu_world = loop_world(port_pkg("cpu"), mt, mt_table)
-    on_cpu, cpu_reports, _ = run_loop(cpu_world, mt)
+    on_card, card_reports, _ = scn.run_loop(w, mt)
+    cpu_world = scn.loop_world(scn.port_pkg("cpu"), mt, mt_table)
+    on_cpu, cpu_reports, _ = scn.run_loop(cpu_world, mt)
     rows = []
     for i, (c, p, ref) in enumerate(zip(on_card, on_cpu, LOOP_TRAJECTORY, strict=True)):
         if c[:3] != ref[:3] or p[:3] != ref[:3]:
@@ -589,10 +495,10 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
     # live_loop.py's act 2: a scrambled, shifted table bypasses the gate; the
     # drift detector flags it label-free, then the guard rolls it back
     ndcg_bad = []
-    actions = inject_and_roll_back(w, mt, after_inject=lambda: ndcg_bad.append(
-        heldout_ndcg(w, mt)))
+    actions = scn.inject_and_roll_back(w, mt, after_inject=lambda: ndcg_bad.append(
+        scn.heldout_ndcg(w, mt)))
     kinds = [e.kind for e in w.bus.events()]
-    ndcg_restored = heldout_ndcg(w, mt)
+    ndcg_restored = scn.heldout_ndcg(w, mt)
     if not w.guard.rollbacks or "quality_drift" not in kinds or "rollback" not in kinds:
         raise AssertionError(f"act 2: guard {actions}, bus kinds {sorted(set(kinds))}")
     if kinds.index("quality_drift") > kinds.index("rollback"):
@@ -609,15 +515,15 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
         guard_actions=actions, ndcg_bad=ndcg_bad[0], ndcg_restored=ndcg_restored,
         bus_kinds=kinds), traces=len(traces),
         index_build_ms=reg.histogram("index_build_ms").summary(),
-        routes=leg_routes("loop", before, mt_table, range(1, LOOP_EVAL + 1)),
+        routes=leg_routes("loop", before, mt_table, range(1, scn.LOOP_EVAL + 1)),
         seconds=time.perf_counter() - t0)
     log(f"loop: refine_with_gate on the card (main thread) ms {[round(x, 3) for x in refine_ms]}; "
         f"{len(traces)} sampled traces, paths {sorted({t.path for t in traces})}; fused index "
         f"rebuilds {w.index.stats['rebuilds']}, build ms p50 "
         f"{reg.histogram('index_build_ms').percentile(50):.3f}; topk_sim by route "
         + json.dumps(out["loop"]["routes"]) + f" on {card}")
-    close_world(w)
-    close_world(cpu_world)
+    scn.close_world(w)
+    scn.close_world(cpu_world)
 
     # the controller's daemon thread refines and swaps while the main thread
     # serves: every result must be the exact top-5 of the table its version
@@ -628,7 +534,7 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
     t0 = time.perf_counter()
     before = dict(topk_kernel.launches_by_route)
     reg = MetricsRegistry()
-    w = loop_world(pkg, mt, mt_table, "fused", metrics=reg)
+    w = scn.loop_world(pkg, mt, mt_table, "fused", metrics=reg)
     tables = {w.db.table_version: w.db.embeddings.copy()}
 
     def record_table(version):
@@ -648,7 +554,7 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
         deadline = time.perf_counter() + LOOP_THREAD_DEADLINE_S
         passes = 0
         while time.perf_counter() < deadline:
-            serve_window(w, mt, mt.train_idx, check=keep)
+            scn.serve_window(w, mt, mt.train_idx, check=keep)
             passes += 1
             if any(r.swapped for r in w.controller.reports) and passes >= LOOP_THREAD_PASSES:
                 break
@@ -686,7 +592,7 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
                               results_checked=n_checked, near_tie_rows=n_rule,
                               refine_with_gate_ms=daemon_ms, health=health,
                               routes=leg_routes("loop thread", before, mt_table,
-                                                range(1, LOOP_BATCH + 1)),
+                                                range(1, scn.LOOP_BATCH + 1)),
                               seconds=time.perf_counter() - t0)
     log(f"loop thread: controller.start({LOOP_THREAD_INTERVAL_S}) beside {passes} serving "
         f"passes: {len(w.controller.reports)} steps, {swaps} swaps, no step failed, no "
@@ -694,7 +600,7 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
         f"top-5 (near-tie rows {n_rule}); refine_with_gate on the daemon thread ms "
         f"{[round(x, 3) for x in daemon_ms]}; topk_sim by route "
         + json.dumps(out["loop_thread"]["routes"]) + f" on {card}")
-    close_world(w)
+    scn.close_world(w)
 
     # ---- (b) latency under churn: a thread swaps between the table and a
     # jittered copy every CHURN_SWAP_S while the main thread times batches
@@ -895,6 +801,413 @@ def loop_phase(dev, card, tb_bench, tb_enc, native, big):
     return out
 
 
+def learn_phase(dev, card, tb_bench, tb_enc, native):
+    """Phase 9: the learning plane on the card. Returns the summary; raises
+    on any failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch import scenarios as scn
+    from repro_torch.core.adapter import init_adapter
+    from repro_torch.core.features import OutcomeFeaturizer
+    from repro_torch.core.reranker import init_mlp
+    from repro_torch.data.benchmarks import make_metatool_like
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.obs.summary import percentile_stats
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.stages import StageSet
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    out, pkg, gate_ties = {}, scn.port_pkg(dev), []
+    bench = make_metatool_like(seed=0, n_tools=scn.LEARN_TOOLS, n_queries=scn.LEARN_QUERIES)
+
+    def note_margin(where, margin):
+        if abs(margin) < GATE_TIE:
+            gate_ties.append(dict(where=where, margin=margin))
+            log(f"learn gate near-tie: {where} margin {margin:.3g} (< {GATE_TIE}: may flip "
+                f"between devices)")
+
+    # ---- (a) learn_bench's density sweep through fused routers (cluster)
+    t0 = time.perf_counter()
+    before = dict(topk_kernel.launches_by_route)
+    points = scn.density_sweep(pkg, bench, scn.LEARN_FRACTIONS, scn.LEARN_TEST,
+                              trainer_seeds=LEARN_SEEDS, backend="fused")
+    failures = []
+    for i, pt in enumerate(points):
+        nd = pt["ndcg_at_5"]
+        means = {st: float(np.mean(v)) for st, v in pt["ndcg_by_seed"].items()}
+        if abs(nd["refine_only"] - scn.LEARN_REFINE_ONLY[i]) > S1_NDCG_ATOL:
+            failures.append(f"point {i}: refine-only {nd['refine_only']:.6f} vs JAX "
+                            f"{scn.LEARN_REFINE_ONLY[i]:.6f}")
+        for st, (lo, hi) in scn.LEARN_BANDS[i].items():
+            if not lo <= means[st] <= hi:
+                failures.append(f"point {i}: {st} mean over seeds {means[st]:.4f} outside the "
+                                f"JAX band [{lo}, {hi}]")
+        if pt["promotion_regressed"]:
+            failures.append(f"point {i}: promotion {pt['promoted']} regressed to "
+                            f"{pt['ndcg_promoted']:.4f}")
+        for st, m in pt["gate_margins"].items():
+            note_margin(f"sweep point {i} {st}", m)
+        log(f"learn sweep {pt['density']:.2f} ev/tool ({pt['events']} events), plan "
+            f"{pt['plan']}: NDCG@5 refine-only {nd['refine_only']:.6f} (JAX "
+            f"{scn.LEARN_REFINE_ONLY[i]:.6f}), +adapter {nd['plus_adapter']:.4f} (mean over "
+            f"seeds {means['plus_adapter']:.4f}, JAX band {scn.LEARN_BANDS[i]['plus_adapter']}), "
+            f"+reranker "
+            f"{nd['plus_rerank']:.4f} (mean {means['plus_rerank']:.4f}, band "
+            f"{scn.LEARN_BANDS[i]['plus_rerank']}); promoted {pt['promoted'] or '(none)'} -> "
+            f"{pt['ndcg_promoted']:.4f}, gate margins "
+            + json.dumps({k: round(v, 6) for k, v in pt["gate_margins"].items()})
+            + f"; trainer s adapter {[round(x, 2) for x in pt['train_s']['adapter']]}, reranker "
+            f"{[round(x, 2) for x in pt['train_s']['rerank']]}; refine {pt['refine_s']:.3f} s")
+    if failures:
+        raise AssertionError("learn sweep: " + "; ".join(failures))
+    out["sweep"] = dict(points=points, seconds=time.perf_counter() - t0,
+                        routes=check_leg_routes("learn sweep", before,
+                                                np.zeros((scn.LEARN_TOOLS, 384)),
+                                                [1, scn.LOOP_BATCH, 512], dev))
+
+    # ---- (b) live_loop.py --stages' three acts, fused router (cluster)
+    t0 = time.perf_counter()
+    before = dict(topk_kernel.launches_by_route)
+    acts, w = scn.stages_acts(pkg, bench)
+    note_margin("act 2 adapter", acts["act2"]["gate_margin"])
+    log(f"learn acts: sparse window suppressed both stages; dense window promoted adapter/"
+        f"v{acts['act2']['artifact']} (held-out gate {acts['act2']['ndcg_current']:.6f} -> "
+        f"{acts['act2']['ndcg_candidate']:.6f}), heldout NDCG@5 {acts['ndcg_sparse']:.6f} -> "
+        f"{acts['ndcg_dense']:.6f}; corrupted StageSet {acts['ndcg_bad']:.6f}, guard "
+        f"{acts['guard_actions']}, restored {acts['ndcg_restored']:.6f} (good "
+        f"{acts['ndcg_dense']:.6f}); step s " + json.dumps(
+            [dict(act=st["act"], s=round(st["seconds"], 3), decisions=st["decisions"])
+             for st in acts["steps"]]) + f" on {card}")
+
+    # ---- (c) the same learner on its daemon thread beside serving: the
+    # window refills past the plan's 10K-event adapter threshold and the
+    # adapter retrains there; every step on the daemon is timed
+    daemon_steps, n_reports = [], len(w.learner.reports)
+    step_on_main = w.learner.step
+
+    def timed_step():
+        t = time.perf_counter()
+        rep = step_on_main()
+        daemon_steps.append(dict(seconds=time.perf_counter() - t, reason=rep.reason,
+                                 decisions={k: d.action for k, d in rep.decisions.items()},
+                                 margins={k: d.ndcg_candidate - d.ndcg_current
+                                          for k, d in rep.decisions.items()
+                                          if d.ndcg_candidate is not None}))
+        return rep
+
+    w.learner.step = timed_step
+    trained = {"promoted", "gate_rejected", "table_moved", "activation_conflict"}
+    passes, t_daemon = 0, time.perf_counter()
+    w.learner.start(interval_s=LEARN_DAEMON_INTERVAL_S)
+    try:
+        deadline = time.perf_counter() + LEARN_DAEMON_DEADLINE_S
+        while time.perf_counter() < deadline:
+            scn.serve_and_log(w.router, bench, bench.train_idx)
+            passes += 1
+            if any(set(st["decisions"].values()) & trained for st in daemon_steps):
+                break
+    finally:
+        w.learner.stop()
+    daemon_s = time.perf_counter() - t_daemon
+    reports = w.learner.reports[n_reports:]
+    failed = [r.reason for r in reports if r.reason.startswith("step failed")]
+    loop_errors = w.bus.counts().get("loop_error", 0)
+    health = pkg.Health(routers=[w.router], controllers=[w.learner], indexes=[w.router.index],
+                        stores=[w.store], bus=w.bus).snapshot()
+    train_failed = [st for st in acts["steps"] + daemon_steps
+                    if "train_failed" in st["decisions"].values()]
+    trained_steps = [st for st in daemon_steps if set(st["decisions"].values()) & trained]
+    for st in trained_steps:
+        for stage, m in st["margins"].items():
+            note_margin(f"daemon {stage}", m)
+    if (failed or loop_errors or w.learner.last_loop_error is not None or train_failed
+            or not trained_steps or health["status"] != "ok"):
+        raise AssertionError(f"learn daemon: failed steps {failed}, {loop_errors} loop_error "
+                             f"events, train_failed {train_failed}, trained steps "
+                             f"{len(trained_steps)}, health {health['status']!r}")
+    quiet = [st["seconds"] for st in daemon_steps if st not in trained_steps]
+    log(f"learn daemon: start({LEARN_DAEMON_INTERVAL_S}) beside {passes} serving passes in "
+        f"{daemon_s:.1f} s: {len(daemon_steps)} steps, none failed, no loop_error, health ok; "
+        f"training steps "
+        + json.dumps([dict(s=round(st["seconds"], 3), decisions=st["decisions"])
+                      for st in trained_steps])
+        + f"; other steps p50 {float(np.median(quiet)) * 1e3 if quiet else 0:.3f} ms")
+    out["acts"] = dict(acts, seconds=time.perf_counter() - t0, daemon=dict(
+        passes=passes, seconds=daemon_s, steps=daemon_steps, health=health),
+        routes=check_leg_routes("learn acts", before, np.zeros((scn.LEARN_TOOLS, 384)),
+                                [1, scn.LOOP_BATCH, 512], dev))
+    w.router.close()
+
+    # ---- (d) learn_bench's latency leg: batches of 64 at 2,413 tools, stage
+    # free and with both stages live (re-ranker candidates C = 25: cluster)
+    before = dict(topk_kernel.launches_by_route)
+    db = ToolsDatabase([ToolRecord(i, f"tool_{i}", tb_bench.desc_tokens[i],
+                                   int(tb_bench.tool_category[i]))
+                        for i in range(tb_bench.n_tools)], native)
+    router = SemanticRouter(db, embed_fn=tb_enc.encode_one, embed_batch_fn=tb_enc.encode, k=5,
+                            backend="fused", metrics=False, device=dev)
+    queries = list(tb_bench.query_tokens)
+
+    def timed_pass():
+        for _ in range(2):
+            router.route_batch(queries[:scn.LOOP_BATCH])
+        ms = []
+        with no_gc():
+            for i in range(LEARN_LATENCY_CALLS):
+                batch = [queries[(i * scn.LOOP_BATCH + j) % len(queries)]
+                         for j in range(scn.LOOP_BATCH)]
+                t = time.perf_counter()
+                router.route_batch(batch)
+                ms.append((time.perf_counter() - t) * 1e3)
+        return percentile_stats(ms)
+
+    bare = timed_pass()
+    fit_idx = tb_bench.train_idx[:200]
+    fit_q = tb_enc.encode([tb_bench.query_tokens[i] for i in fit_idx])
+    retrieved = np.argsort(-(fit_q @ native.T), axis=1, kind="stable")[:, :5]
+    featurizer = OutcomeFeaturizer.fit(fit_q, [tb_bench.query_tokens[i] for i in fit_idx],
+                                       tb_bench.relevance_matrix()[fit_idx], retrieved,
+                                       tb_bench.tool_category, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    router.set_stages(StageSet(adapter_params=init_adapter(gen), mlp_params=init_mlp(gen),
+                               featurizer=featurizer), expect_version=0)
+    staged = timed_pass()
+    router.close()
+    out["latency"] = dict(n_tools=tb_bench.n_tools, batch=scn.LOOP_BATCH, calls=LEARN_LATENCY_CALLS,
+                          no_stages=bare.as_dict(), all_stages=staged.as_dict(),
+                          routes=check_leg_routes("learn latency", before, native, [scn.LOOP_BATCH],
+                                                  dev, k=25))
+    log(f"learn latency T={tb_bench.n_tools} batch {scn.LOOP_BATCH}: per batch p50/p99 stage-free "
+        f"{bare.p50_ms:.3f} / {bare.p99_ms:.3f} ms, adapter + re-ranker (C = 25) "
+        f"{staged.p50_ms:.3f} / {staged.p99_ms:.3f} ms; per query p99 "
+        f"{staged.p99_ms / scn.LOOP_BATCH:.4f} ms (budget {BUDGET_MS}); topk_sim by route "
+        + json.dumps(out["latency"]["routes"]) + f" on {card}")
+    if staged.p99_ms / scn.LOOP_BATCH > BUDGET_MS:
+        raise AssertionError(
+            f"learn latency: p99 per query {staged.p99_ms / scn.LOOP_BATCH:.3f} ms")
+    out["gate_ties"] = gate_ties
+    log(f"learn gate near-ties (|margin| < {GATE_TIE}): {len(gate_ties)}")
+    return out
+
+
+def ivf_phase(dev, card, tb_bench, tb_enc, big, q_all):
+    """Phase 10: the IVF backend and the manager's background rebuild at
+    N_TOOLS on the card. Returns the summary; raises on any failed check."""
+    import numpy as np
+    import torch
+
+    from repro_torch import scenarios as scn
+    from repro_torch.index import FusedBackend, IVFBackend
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.obs.summary import percentile_stats
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    out = {}
+    before = dict(topk_kernel.launches_by_route)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t
+
+    # ---- builds: cold, warm on a gently moved table, and cold on it
+    moved = big + np.random.default_rng(0).normal(scale=1e-3, size=big.shape).astype(np.float32)
+    moved /= np.maximum(np.linalg.norm(moved, axis=-1, keepdims=True), 1e-9)
+    cold, cold_s = timed(lambda: IVFBackend(big, 0, device=dev))
+    warm, warm_s = timed(lambda: IVFBackend(moved, 1, warm_start=cold.warm_start_state(),
+                                            device=dev))
+    cold_moved, cold_moved_s = timed(lambda: IVFBackend(moved, 1, device=dev))
+    sizes = cold._sizes_host
+    out["build"] = dict(n_clusters=cold.n_clusters, max_cluster=cold._max_cluster,
+                        mean_cluster=float(sizes.mean()), cold_s=cold_s,
+                        cold_iters=cold.kmeans_iters_run, warm_s=warm_s,
+                        warm_iters=warm.kmeans_iters_run, cold_moved_s=cold_moved_s,
+                        cold_moved_iters=cold_moved.kmeans_iters_run)
+    log(f"ivf build T={big.shape[0]}: {cold.n_clusters} clusters (mean {sizes.mean():.1f} rows, "
+        f"largest {cold._max_cluster}), cold {cold_s:.3f} s in "
+        f"{cold.kmeans_iters_run} k-means iterations; on a table moved by 1e-3: warm "
+        f"{warm_s:.3f} s in {warm.kmeans_iters_run}, cold {cold_moved_s:.3f} s in "
+        f"{cold_moved.kmeans_iters_run}")
+    # not gated: on this clone table near-duplicate rows keep flipping
+    # between clusters, so k-means runs its full budget cold or warm (the JAX
+    # package's build does the same at this size); the warm start's
+    # convergence is held on the CPU (tests/test_torch_index.py)
+
+    # ---- Recall@5 against the fused backend's exact result
+    fused = FusedBackend(big, 0, device=dev)
+    exact, approx, approx_s = [], [], []
+    for lo in range(0, len(q_all), scn.LOOP_BATCH):
+        exact.append(fused.topk(q_all[lo:lo + scn.LOOP_BATCH], 5)[1])
+        s_, i_ = cold.topk(q_all[lo:lo + scn.LOOP_BATCH], 5)
+        approx.append(i_)
+        approx_s.append(s_)
+    exact, approx, approx_s = (np.concatenate(x) for x in (exact, approx, approx_s))
+    recall = float(np.mean([len(set(a) & set(b)) / 5 for a, b in zip(exact, approx)]))
+    want = np.einsum("qkd,qd->qk", big[approx].astype(np.float64), q_all.astype(np.float64))
+    score_err = float(np.abs(approx_s - want).max())
+    out["recall"] = dict(queries=len(q_all), recall_at_5=recall, score_max_abs_err=score_err,
+                         rows_equal_to_exact=float((exact == approx).all(axis=1).mean()))
+    log(f"ivf recall@5 against the fused backend's exact top-5 over {len(q_all)} queries: "
+        f"{recall:.4f} (floor {IVF_RECALL_FLOOR}); rows equal to exact "
+        f"{out['recall']['rows_equal_to_exact']:.4f}; returned scores against float64 "
+        f"similarities: max abs err {score_err:.3g}")
+    if recall < IVF_RECALL_FLOOR or score_err > SCORE_ATOL:
+        raise AssertionError(f"ivf recall {recall:.4f}, score error {score_err:.3g}")
+
+    # ---- batches of 64 and 8 through an IVF router and a fused router, in turns
+    nt = tb_bench.n_tools
+    records = [ToolRecord(i, f"tool_{i}", tb_bench.desc_tokens[i % nt],
+                          int(tb_bench.tool_category[i % nt])) for i in range(big.shape[0])]
+    routers = {kind: SemanticRouter(ToolsDatabase(list(records), big), embed_fn=tb_enc.encode_one,
+                                    embed_batch_fn=tb_enc.encode, k=5, backend=kind,
+                                    metrics=False, device=dev)
+               for kind in ("ivf", "fused")}
+    if not routers["ivf"].index.wait_ready(120.0):
+        raise AssertionError("ivf router: the first background build never landed")
+    queries = list(tb_bench.query_tokens)
+    rows = []
+    for batch in (scn.LOOP_BATCH, 8):
+        ms = {kind: [] for kind in routers}
+        for kind, router in routers.items():
+            for _ in range(2):
+                router.route_batch(queries[:batch])
+        with no_gc():
+            for i in range(IVF_CALLS):
+                qs = [queries[(i * batch + j) % len(queries)] for j in range(batch)]
+                for kind in (("ivf", "fused") if i % 2 == 0 else ("fused", "ivf")):
+                    t = time.perf_counter()
+                    routers[kind].route_batch(qs)
+                    ms[kind].append((time.perf_counter() - t) * 1e3)
+        if routers["ivf"].index.last_path() != "index:ivf":
+            raise AssertionError(f"ivf router served {routers['ivf'].index.last_path()}")
+        row = {kind: percentile_stats(v).as_dict() for kind, v in ms.items()}
+        row["batch"] = batch
+        rows.append(row)
+        log(f"ivf batch {batch} over {big.shape[0]} tools: per batch p50/p99 ivf "
+            f"{row['ivf']['p50_ms']:.3f} / {row['ivf']['p99_ms']:.3f} ms, fused "
+            f"{row['fused']['p50_ms']:.3f} / {row['fused']['p99_ms']:.3f} ms (in turns)")
+    out["batches"] = rows
+    routers["fused"].close()
+
+    # ---- a swap and a rollback under load: the main thread serves batches
+    # of 64 while another thread swaps; with async_rebuild the exact
+    # fallback serves each new version until its background build lands
+    router = routers["ivf"]
+    db, manager = router.db, router.index
+    tables = {db.table_version: big}
+    refs = {id(big): dense_top5(q_all, big, dev), id(moved): dense_top5(q_all, moved, dev)}
+    go, done, swap_ms = [threading.Event(), threading.Event()], [threading.Event(),
+                                                                   threading.Event()], []
+    errors = []
+
+    def swapper():
+        try:
+            for step, new in enumerate((moved, big)):
+                go[step].wait()
+                v = db.table_version
+                tables[v + 1] = new
+                t = time.perf_counter()
+                if step == 0:
+                    db.swap_table(new, expect_current=v)
+                else:
+                    db.rollback(expect_current=v)
+                swap_ms.append((time.perf_counter() - t) * 1e3)
+                done[step].set()
+        except Exception as exc:  # surfaced below
+            errors.append(exc)
+            for ev in done:
+                ev.set()
+
+    served, stage, count, i = [], 0, 0, 0
+    build_iters = []
+    th = threading.Thread(target=swapper, daemon=True)
+    th.start()
+    deadline = time.perf_counter() + 120.0
+    try:
+        while stage < 3 and time.perf_counter() < deadline:
+            qi = [(i * scn.LOOP_BATCH + j) % len(queries) for j in range(scn.LOOP_BATCH)]
+            i += 1
+            t = time.perf_counter()
+            res = router.route_batch([queries[j] for j in qi])
+            ms = (time.perf_counter() - t) * 1e3
+            path = manager.last_path()
+            served.append((qi, res, path, ms, stage))
+            fresh = stage == 0 or (done[stage - 1].is_set() and
+                                   res[0].table_version == max(tables))
+            if path == "index:ivf" and fresh:
+                count += 1
+            if count >= IVF_SWAP_BATCHES:
+                if stage >= 1:
+                    build_iters.append(manager._backend.kmeans_iters_run)
+                if stage < 2:
+                    go[stage].set()
+                stage, count = stage + 1, 0
+    finally:
+        for ev in go:
+            ev.set()
+        th.join()
+    if errors or stage < 3:
+        raise AssertionError(f"ivf swap under load: stage {stage}, errors {errors}")
+    n_exact = n_index = n_rule = 0
+    hits = []
+    for qi, res, path, ms, st in served:
+        versions = {r.table_version for r in res}
+        if len(versions) != 1:
+            raise AssertionError(f"ivf swap: one batch served versions {versions}")
+        table = tables[versions.pop()]
+        ref_idx, ref_sc = refs[id(table)]
+        for j, r in zip(qi, res):
+            got = np.asarray(r.tools)
+            want_sc = table[got].astype(np.float64) @ q_all[j].astype(np.float64)
+            if np.abs(np.asarray(r.scores) - want_sc).max() > SCORE_ATOL:
+                raise AssertionError(f"ivf swap ({path}): scores are not the similarities of "
+                                     f"the table their version names")
+            if path == "exact" and r.tools != ref_idx[j].tolist():
+                if not same_ranking(r.tools, r.scores, ref_idx[j], ref_sc[j], NEAR_TIE):
+                    raise AssertionError(f"ivf swap (exact): {r.tools} vs {ref_idx[j].tolist()}")
+                n_rule += 1
+            if path == "index:ivf":
+                hits.append(len(set(r.tools) & set(ref_idx[j].tolist())) / 5)
+        n_exact += path == "exact"
+        n_index += path == "index:ivf"
+    exact_ms = [x[3] for x in served if x[2] == "exact"]
+    index_ms = [x[3] for x in served if x[2] == "index:ivf"]
+    swap_recall = float(np.mean(hits))
+    out["swap"] = dict(batches=len(served), served_exact=n_exact, served_index=n_index,
+                       exact_by_stage=[sum(1 for x in served if x[2] == "exact" and x[4] == st)
+                                       for st in range(3)],
+                       exact_batch_ms=percentile_stats(exact_ms).as_dict(),
+                       index_batch_ms=percentile_stats(index_ms).as_dict(),
+                       first_exact_ms=exact_ms[0] if exact_ms else None,
+                       swap_table_ms=swap_ms, rebuild_iters=build_iters,
+                       recall_at_5=swap_recall, near_tie_rows=n_rule, stats=dict(manager.stats))
+    log(f"ivf swap under load: {len(served)} batches of {scn.LOOP_BATCH}, {n_exact} served exact "
+        f"(by stage {out['swap']['exact_by_stage']}) while a background build ran, {n_index} "
+        f"by the index; exact batches p50/p99 {out['swap']['exact_batch_ms']['p50_ms']:.3f} / "
+        f"{out['swap']['exact_batch_ms']['p99_ms']:.3f} ms (the first, with the snapshot's "
+        f"upload, {out['swap']['first_exact_ms']:.3f}), index batches "
+        f"{out['swap']['index_batch_ms']['p50_ms']:.3f} / "
+        f"{out['swap']['index_batch_ms']['p99_ms']:.3f} ms; swap_table ms "
+        f"{[round(x, 2) for x in swap_ms]}; rebuilt k-means iterations {build_iters} (warm "
+        f"started; cold {cold.kmeans_iters_run}); recall@5 of index batches {swap_recall:.4f}; "
+        f"every result's scores the similarities of its version's table; manager "
+        + json.dumps(manager.stats))
+    if manager.stats["build_failures"] or n_exact < 1 or swap_recall < IVF_RECALL_FLOOR:
+        raise AssertionError(f"ivf swap: {manager.stats}, {n_exact} exact batches, recall "
+                             f"{swap_recall:.4f}, rebuild iterations {build_iters}")
+    router.close()
+    tail = len(q_all) % scn.LOOP_BATCH or scn.LOOP_BATCH  # the exact reference's last block
+    out["routes"] = check_leg_routes("ivf", before, big, [scn.LOOP_BATCH, 8, tail], dev)
+    log("ivf: topk_sim by route (the exact reference and the fused router) "
+        + json.dumps(out["routes"]) + f" on {card}")
+    return out
+
+
 @contextlib.contextmanager
 def no_gc():
     """Collector pauses land on arbitrary batches and a short stream's p99
@@ -1059,7 +1372,12 @@ def main() -> int:
                            (5, 300, 64, 128), (8, 2413, 130, 25),
                            # the loop phase's: 199 tools, the cache's 25,000
                            (64, 199, 384, 5), (8, 199, 384, 5), (32, 25_000, 384, 5),
-                           (8, 25_000, 384, 5)]:
+                           (8, 25_000, 384, 5),
+                           # the learning phase's at 600 tools: one query, a serving
+                           # batch, a held-out block padded to 512, the re-ranker's
+                           # C = 25; the IVF phase's exact reference tail block
+                           (1, 600, 384, 5), (64, 600, 384, 5), (512, 600, 384, 5),
+                           (64, 600, 384, 25), (512, 600, 384, 25), (24, 100_000, 384, 5)]:
         q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
         check_routes("random", q, t, k)
         if (n_q, n_t, k) == (33, 100_003, 25):  # all-zero rows, as the gateway pads a batch
@@ -1794,6 +2112,27 @@ def main() -> int:
                                  if name != "topk_sim"):
         raise AssertionError(f"the loop path launched topk_sim {loop_routes}")
 
+    # ------------------------------------------------------ 9. learn, 10. ivf
+    # the learning plane through fused routers, then IVF beside the fused
+    # backend at 100,000 tools; each path's launches are counted from its start
+    later_paths = {}
+    for path_name, run in (("learn", lambda: learn_phase(dev, card, bench, enc, native)),
+                           ("ivf", lambda: ivf_phase(dev, card, bench, enc, big, q_all))):
+        for mod in kernel_modules.values():
+            mod.launches = 0
+        topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+        t_path = time.perf_counter()
+        summary_path = run()
+        summary_path["seconds"] = time.perf_counter() - t_path
+        later_paths[path_name] = dict(summary=summary_path, launches=topk_kernel.launches,
+                                routes=dict(topk_kernel.launches_by_route))
+        log(f"{path_name} path: {summary_path['seconds']:.1f} s, topk_sim launches "
+            f"{topk_kernel.launches}, by route " + json.dumps(later_paths[path_name]["routes"]))
+        if topk_kernel.launches == 0 or any(mod.launches for name, mod in kernel_modules.items()
+                                            if name != "topk_sim"):
+            raise AssertionError(f"the {path_name} path launched topk_sim "
+                                 f"{later_paths[path_name]['routes']}")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -2020,7 +2359,8 @@ def main() -> int:
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89",
-        launches=main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches,
+        launches=(main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches
+                  + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]),
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -2029,9 +2369,13 @@ def main() -> int:
         index_agreement="exact except reordering inside near-ties (rows counted in checks); "
                         "the wgmma route bitwise equal to the split route",
         launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"],
-                          "pipeline": pipe_launches, "loop": loop_launches},
+                          "pipeline": pipe_launches, "loop": loop_launches,
+                          "learn": later_paths["learn"]["launches"],
+                          "ivf": later_paths["ivf"]["launches"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
-                           "pipeline": pipe_routes, "loop": loop_routes},
+                           "pipeline": pipe_routes, "loop": loop_routes,
+                           "learn": later_paths["learn"]["routes"],
+                           "ivf": later_paths["ivf"]["routes"]},
         rescored={"serve": serve_rescored},
         crossover=crossover, host_vs_device=host_split,
     ), dict(
@@ -2075,7 +2419,8 @@ def main() -> int:
                    pipeline=dict(rows=pipe_rows, serve_near_tie_rows=pipe_serve,
                                  rerank_candidates_near_tie_rows=n_cand_rule,
                                  seconds=pipe_s),
-                   loop=loop)
+                   loop=loop, learn=later_paths["learn"]["summary"],
+                   ivf=later_paths["ivf"]["summary"])
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

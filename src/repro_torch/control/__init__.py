@@ -13,8 +13,8 @@ router, with no changes to the serving path:
 
 Counterpart of `repro.control`: the store and the guard are copies with
 only their imports changed; the controller runs `refine_with_gate` on its
-device. The learning plane that consumes the store's window in the JAX
-package (`repro.learn`) is not ported yet.
+device. The learning plane that consumes the store's window is
+`repro_torch.learn`.
 """
 from repro_torch.control.controller import (
     ControllerConfig,

@@ -25,8 +25,8 @@ the store's live per-tool counters and records the plan on its report:
 refinement itself is always-on in that policy (zero serving cost,
 gate-protected, §7.2), while the plan's density thresholds gate training of
 the learned stages (rerank/adapter) — acted on by the learning plane
-(the JAX package's `repro.learn.LearningController`, not ported yet). This
-controller itself never trains serving-path models mid-flight.
+(`repro_torch.learn.LearningController`). This controller itself never
+trains serving-path models mid-flight.
 
 The validation slice is a deterministic per-refinement split of the *unique
 queries* in the window (not of raw events: a query's K outcome events must
@@ -34,10 +34,10 @@ land on one side of the split, or the gate validates on its own train set).
 
 Index layer: every swap/rollback this loop performs invalidates a
 `repro_torch.index.ToolIndexManager`'s built index. The managers' own
-`ToolsDatabase` swap listeners rebuild it inline the moment the table moves
-(on the thread that swapped); the controller additionally refreshes any
-managers passed via `indexes=` at the end of each step and records
-`ControllerReport.index_fresh`.
+`ToolsDatabase` swap listeners rebuild it the moment the table moves
+(inline on the thread that swapped, or on a background thread for IVF);
+the controller additionally refreshes any managers passed via `indexes=`
+at the end of each step and records `ControllerReport.index_fresh`.
 """
 from __future__ import annotations
 
@@ -178,8 +178,11 @@ class RefinementController:
         report.table_version = self.db.table_version
         if self.indexes:
             for manager in self.indexes:
-                # every ported build is inline: fresh when this returns
-                manager.refresh()
+                # honor each manager's build mode: a synchronous manager
+                # (a cheap backend, or async_rebuild=False) must be fresh
+                # when the step returns; async managers get a no-op poke
+                # when already fresh/building
+                manager.refresh(block=not getattr(manager, "async_rebuild", True))
             report.index_fresh = all(m.is_fresh() for m in self.indexes)
         self.reports.append(report)
         return report

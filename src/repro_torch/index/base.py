@@ -36,7 +36,7 @@ __all__ = ["NEG_INF", "ScorerBackend"]
 class ScorerBackend(Protocol):
     """Batched top-K similarity scoring over one immutable table snapshot."""
 
-    name: str  # registry key ("dense" | "fused")
+    name: str  # registry key ("dense" | "fused" | "ivf")
     table_version: int  # ToolsDatabase version the index was built from
     n_tools: int  # rows in the indexed table
     supports_masks: bool  # can honor [Q, T] candidate masks natively

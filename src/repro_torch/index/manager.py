@@ -1,13 +1,13 @@
 """ToolIndexManager: version-tracked index lifecycle between the database
 and the scorer backends.
 
-Counterpart of `repro/index/manager.py`, without its background rebuild
-thread (every ported build is inline); every backend (and the exact fallback) lives on the manager's `device` —
-`None` means the CUDA card, and a machine without one raises.
+Counterpart of `repro/index/manager.py`; every backend (and the exact
+fallback) lives on the manager's `device` — `None` means the CUDA card,
+and a machine without one raises.
 
 The swap-compatibility problem this layer solves: an index (a
-device-resident table copy, later IVF clusters) is derived state over one table snapshot,
-but `ToolsDatabase.swap_table`/`rollback` can land at any moment —
+device-resident table copy, IVF clusters) is derived state over one table
+snapshot, but `ToolsDatabase.swap_table`/`rollback` can land at any moment —
 including mid-batch, including from the control plane's guard. The
 manager keeps the invariant that *served scores always come from the table
 version they are reported under*:
@@ -15,28 +15,42 @@ version they are reported under*:
   * every `topk` call starts from an atomic `db.snapshot()`;
   * if the built backend matches the snapshot version (and can honor the
     batch's candidate mask), it serves;
-  * otherwise the index is rebuilt inline for the snapshot's version and
-    serves. Every ported backend's build is one device upload
-    (`build_is_cheap`), so no batch waits on a background thread; IVF,
-    whose k-means build needs one, comes in a later slice;
-  * a masked batch the backend cannot honor, or a swap that lands between
-    the snapshot and the rebuild, is served by the exact dense path **on
-    the snapshot itself** — a `DenseBackend` over that snapshot, rebuilt
-    only on version change, so it is numerically identical to the dense
-    index.
+  * a masked batch the backend cannot honor, or a batch that finds no
+    index for its version, is served by the exact dense path **on the
+    snapshot itself** — a `DenseBackend` over that snapshot, rebuilt only
+    on version change, so it is numerically identical to the dense index.
 
 Rebuilds are also triggered eagerly: the manager registers a
 `ToolsDatabase.add_swap_listener` hook at construction, so a control-plane
-swap or guard rollback rebuilds the index before the next request.
+swap or guard rollback starts the rebuild immediately instead of on the
+next unlucky request.
 
-A failed build is counted in `stats["build_failures"]` and raised: the
-construction, or the serving call that needed the index, fails. The
-configured backend (on the card, the `topk_sim` kernel) never hands its
-batches to the exact path quietly.
+Two build disciplines, by backend:
+
+  * cheap builds (`build_is_cheap`: dense, fused — one device upload) run
+    inline, on the thread that swapped or the serving call that found the
+    index stale, so no batch waits on a background thread. A failed cheap
+    build is counted in `stats["build_failures"]` and raised: the
+    construction, or the serving call that needed the index, fails. The
+    configured backend (on the card, the `topk_sim` kernel) never hands its
+    batches to the exact path quietly;
+  * expensive builds (IVF k-means) run on a background
+    `index-rebuild-v{n}` thread (`async_rebuild=False` makes them
+    synchronous: deterministic for tests and offline jobs), and the exact
+    fallback serves the snapshot meanwhile, counted in
+    `stats["served_exact"]` and `last_path()`. A swap-triggered rebuild
+    seeds from the outgoing index's `warm_start_state()`. A failed
+    expensive build is counted and leaves the fallback serving: that
+    index is an optimization, never a correctness dependency.
+
+`backend_opts` are validated at construction by a probe build over the
+table's first 64 rows, so a misconfiguration raises there instead of
+dissolving into a build-failure loop behind the fallback.
 """
 from __future__ import annotations
 
 import threading
+import time  # time.sleep only; clocks come from repro_torch.obs.clock
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -65,11 +79,11 @@ class _IndexInstruments:
         self.build_ms = registry.histogram("index_build_ms")
 
 
-def _build_backend(kind: str, table: np.ndarray, table_version: int, device):
+def _build_backend(kind: str, table: np.ndarray, table_version: int, device, **opts):
     # local import so manager <-> package __init__ stay cycle-free
     from repro_torch.index import build_backend
 
-    return build_backend(kind, table, table_version, device=device)
+    return build_backend(kind, table, table_version, device=device, **opts)
 
 
 class ToolIndexManager:
@@ -77,6 +91,8 @@ class ToolIndexManager:
         self,
         db: ToolsDatabase,
         backend: str = "dense",
+        backend_opts: Optional[dict] = None,
+        async_rebuild: bool = True,
         watch_swaps: bool = True,
         metrics: Union[MetricsRegistry, bool, None] = None,
         bus: Optional["EventBus"] = None,  # repro_torch.obs.events
@@ -88,17 +104,22 @@ class ToolIndexManager:
             raise ValueError(
                 f"unknown backend {backend!r} (available: {sorted(BACKENDS)})"
             )
-        if not BACKENDS[backend].build_is_cheap:
-            raise ValueError(f"backend {backend!r} needs a background build")
         self.db = db
         self.device = resolve_device(device)
         self.backend_kind = backend
+        self.backend_opts = dict(backend_opts or {})
+        # cheap builds (dense/fused: one device upload) always run inline and
+        # raise on failure; only an expensive build (IVF k-means) goes to a
+        # background thread, with the exact fallback serving meanwhile
+        self._inline_build = bool(BACKENDS[backend].build_is_cheap)
+        self.async_rebuild = async_rebuild and not self._inline_build
         self._lock = threading.Lock()
-        # waiters for an in-flight build (a concurrent serving call joins
-        # the running build instead of duplicating it); shares self._lock
+        # waiters for an in-flight build (a concurrent call joins the
+        # running build instead of duplicating it); shares self._lock
         self._build_cond = threading.Condition(self._lock)
         self._backend = None
         self._building_for: Optional[int] = None  # version with an in-flight build
+        self._failed_for: Optional[int] = None  # version whose build failed
         self._fallback: Optional[DenseBackend] = None  # exact path, per version
         self.stats: Dict[str, int] = {
             "served_index": 0,
@@ -117,18 +138,23 @@ class ToolIndexManager:
         self.bus = bus
         # which path served the calling thread's last topk ("index:<kind>" |
         # "exact"): thread-local so concurrent batches don't cross-stamp
-        # their traces
+        # their traces during a fallback-serving window
         self._tls = threading.local()
-        self.refresh()  # a failed first build raises here
+        # fail fast on misconfigured backend_opts: a tiny synchronous
+        # validation build surfaces TypeError/ValueError at construction
+        _, probe_table = db.snapshot()
+        _build_backend(backend, np.asarray(probe_table[:64]), -1, self.device,
+                       **self.backend_opts)
+        self.refresh(block=not self.async_rebuild)  # a failed cheap build raises here
         self._watching = watch_swaps
         if watch_swaps:
             db.add_swap_listener(self._on_swap)
 
     # ------------------------------------------------------------- lifecycle
     def _on_swap(self, new_version: int) -> None:
-        # the database swallows a listener's exception; the serving call
-        # that finds the index stale retries the build and raises
-        self.refresh()
+        # the database swallows a listener's exception; for a cheap backend
+        # the serving call that finds the index stale retries and raises
+        self.refresh(block=not self.async_rebuild)
 
     def close(self) -> None:
         """Unregister from the database's swap listeners (idempotent).
@@ -148,25 +174,65 @@ class ToolIndexManager:
             backend = self._backend
         return backend is not None and backend.table_version == self.db.table_version
 
-    def wait_ready(self) -> bool:
-        """Build the index for the live version if it is stale; True when
-        it is fresh. A failed build raises."""
-        self.refresh()
+    def wait_ready(self, timeout_s: float = 60.0, poll_s: float = 0.01) -> bool:
+        """Block until the index is fresh; True on success.
+
+        A cheap backend is built inline here if it is stale (a failed build
+        raises). For a background build this polls, and returns False
+        immediately (not after the full timeout) when the build for the
+        live version has already failed and nothing is retrying it —
+        callers must check the result: False means the exact fallback is
+        serving, not the configured backend.
+        """
+        if self._inline_build:
+            self.refresh(block=True)
+            return self.is_fresh()
+        deadline = clock.monotonic() + timeout_s
+        while clock.monotonic() < deadline:
+            if self.is_fresh():
+                return True
+            with self._lock:
+                building = self._building_for is not None
+                failed_version = self._failed_for
+            if not building and failed_version == self.db.table_version:
+                return False  # doomed: failed build, no retry in flight
+            time.sleep(poll_s)
         return self.is_fresh()
 
-    def refresh(self) -> None:
-        """Build the index for the current table version, inline, unless it
-        is fresh or another thread is building it (then wait for that)."""
+    def refresh(self, block: bool = False) -> None:
+        """Ensure a build for the current table version is done or in flight.
+
+        `block=True` builds on this thread (or joins the build already
+        running for this version); otherwise the build runs on a background
+        thread. Cheap builds always block."""
+        block = block or self._inline_build
         version, table = self.db.snapshot()
         with self._lock:
             if self._backend is not None and self._backend.table_version >= version:
                 return
             if self._building_for == version:
+                if not block:
+                    return  # one in-flight build per version is enough
+                # join the in-flight build instead of duplicating it; when
+                # it finishes (installed or failed) this refresh is done
                 while self._building_for == version:
                     self._build_cond.wait()
                 return
+            if self._failed_for == version and not block:
+                # this version's background build already failed (counted
+                # in stats); don't respawn a doomed build per serving call
+                # — the next swap, or an explicit refresh(block=True), retries
+                return
             self._building_for = version
-        self._build(version, np.asarray(table))
+        if block:
+            self._build(version, np.asarray(table))
+        else:
+            threading.Thread(
+                target=self._build,
+                args=(version, np.asarray(table)),
+                name=f"index-rebuild-v{version}",
+                daemon=True,
+            ).start()
 
     def _build(self, version: int, table: np.ndarray) -> None:
         bus, obs = self.bus, self._obs
@@ -174,11 +240,20 @@ class ToolIndexManager:
             bus.publish("rebuild_start", plane="index", version=version,
                         backend=self.backend_kind)
         t0 = clock.perf()
+        opts = dict(self.backend_opts)
+        with self._lock:
+            prev = self._backend
+        if prev is not None and hasattr(prev, "warm_start_state"):
+            # swap-triggered rebuild: seed the new build from the outgoing
+            # index's state (IVF k-means centroids); an incompatible state
+            # is validated and ignored by the backend, never an error
+            opts["warm_start"] = prev.warm_start_state()
         try:
-            backend = _build_backend(self.backend_kind, table, version, self.device)
+            backend = _build_backend(self.backend_kind, table, version, self.device, **opts)
         except Exception as exc:
             with self._lock:
                 self.stats["build_failures"] += 1
+                self._failed_for = version
                 if self._building_for == version:
                     self._building_for = None
                 self._build_cond.notify_all()
@@ -187,7 +262,9 @@ class ToolIndexManager:
             if bus is not None:
                 bus.publish("rebuild_failure", plane="index", version=version,
                             backend=self.backend_kind, error=repr(exc))
-            raise
+            if self._inline_build:
+                raise
+            return  # the exact fallback keeps serving
         build_ms = clock.duration_ms(t0)
         with self._lock:
             # never replace a fresher index with a slower build's older one
@@ -220,16 +297,20 @@ class ToolIndexManager:
         with self._lock:
             backend = self._backend
         if backend is None or backend.table_version != version:
-            self.refresh()  # inline: one device upload; a failure raises
+            # cheap builds run inline (a failure raises); an expensive one
+            # goes to the background and this batch serves the exact path
+            self.refresh()
             with self._lock:
                 backend = self._backend
-            if backend is None or backend.table_version < version:
+            if self._inline_build and (backend is None or backend.table_version < version):
                 # another thread's build for this version failed
                 raise RuntimeError(
                     f"no {self.backend_kind} index for table version {version}"
                 )
-        maskable = candidate_mask is None or backend.supports_masks
-        if backend.table_version == version and maskable:
+        maskable = candidate_mask is None or (
+            backend is not None and backend.supports_masks
+        )
+        if backend is not None and backend.table_version == version and maskable:
             scores, idx = backend.topk(queries, k, candidate_mask)
             with self._lock:  # counters race under concurrent serving
                 self.stats["served_index"] += 1

@@ -4,7 +4,7 @@ Counterpart of `repro/router/gateway.py`, with the same contract. Per
 batch: embed the queries (host), pad the miss block to a power-of-two
 bucket, apply the optional query-side adapter, score and top-K against one
 atomic table snapshot through `ToolIndexManager` (the dense backend, or
-the fused Hopper kernel, with the exact fallback on a stale index or a
+the fused Hopper kernel or IVF, with the exact fallback on a stale index or a
 masked batch), optionally re-rank with the [7,64,32,1] MLP, drop the
 `NEG_INF` sentinel slots, and stamp every result with
 `(table_version, stage_version)`.
@@ -137,6 +137,7 @@ class SemanticRouter:
         outcome_sink: Optional[Callable[["OutcomeEvent"], None]] = None,
         index: Optional[ToolIndexManager] = None,
         backend: str = "dense",
+        backend_opts: Optional[dict] = None,
         stages: Optional[StageSet] = None,
         stage_history_limit: int = 4,
         metrics: Union[MetricsRegistry, bool, None] = None,
@@ -182,13 +183,13 @@ class SemanticRouter:
         self.outcome_sink = outcome_sink
         self._outcome_lock = threading.Lock()
         # the scoring layer: a shared ToolIndexManager, or one owned by this
-        # router built from `backend` on this router's device
+        # router built from (backend, backend_opts) on this router's device
         self._owns_index = index is None
         # an owned manager inherits this router's bus at construction so its
         # very first build publishes rebuild events; a shared manager keeps
         # whatever bus its creator wired
         self.index = index if index is not None else ToolIndexManager(
-            db, backend=backend, bus=bus, device=device
+            db, backend=backend, backend_opts=backend_opts, bus=bus, device=device
         )
         self.device = self.index.device
         # telemetry: metrics default ON against the process registry;

@@ -15,19 +15,17 @@ masks and persistence, the controller's triggers and gate, the guard's
 rollback and its compare-and-swap, the daemon loop, and `route_batch`
 under concurrent swaps (on the dense and on the fused backend).
 
-The loop driver is `chip_smoke.py`'s, which runs the same loop on the
-card. Run as a script, this file measures the trajectory `chip_smoke.py`
+The loop lives in `repro_torch.scenarios`, which `chip_smoke.py` runs on
+the card. Run as a script, this file measures the trajectory `chip_smoke.py`
 holds the card to (`LOOP_TRAJECTORY`): the JAX package's loop at
 `benchmarks/control_bench.py`'s full settings, and the port's on the CPU:
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_control.py
 """
 import dataclasses
-import importlib.util
 import sys
 import threading
 import time
-from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -43,6 +41,7 @@ from repro.router.gateway import OutcomeEvent as JaxOutcomeEvent
 from repro.router.gateway import SemanticRouter as JaxRouter
 from repro.router.tooldb import ToolRecord as JaxToolRecord
 from repro.router.tooldb import ToolsDatabase as JaxToolsDatabase
+from repro_torch import scenarios
 from repro_torch.control import (
     ControllerConfig,
     GuardConfig,
@@ -61,22 +60,19 @@ CPU = "cpu"
 REPORT_FIELDS = ("triggered", "reason", "n_events", "n_new_events", "n_queries",
                  "accepted", "swapped", "table_version")
 
-_spec = importlib.util.spec_from_file_location(
-    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-chip_smoke = importlib.util.module_from_spec(_spec)
-_spec.loader.exec_module(chip_smoke)
 
 JAX = SimpleNamespace(
     control=jax_control, Router=JaxRouter, DB=JaxToolsDatabase, Record=JaxToolRecord,
     Bus=JaxEventBus, Quality=JaxQualityMonitor, Index=JaxToolIndexManager,
     encoder=JaxBagEncoder, device_kw={},
 )
-PORT = chip_smoke.port_pkg(CPU)
+PORT = scenarios.port_pkg(CPU)
 
 
 # ------------------------------------------------------------- the loop
-# `chip_smoke.py` holds the jax-free loop driver (world, windows, held-out
-# NDCG@5, the loop, act 2); each package goes through it as a namespace
+# `repro_torch.scenarios` holds the jax-free loop (world, windows,
+# held-out NDCG@5, the loop, act 2); each package goes through it as a
+# namespace
 def _assert_reports_equal(ja, ta):
     assert len(ja) == len(ta)
     for a, b in zip(ja, ta):
@@ -99,10 +95,10 @@ def _assert_reports_equal(ja, ta):
 def test_loop_makes_the_jax_decisions(small_bench, backend):
     table = JaxBagEncoder(small_bench.vocab).encode(small_bench.desc_tokens)
     cfg = dict(min_events=150, min_queries=20, min_samples=16)
-    jw = chip_smoke.loop_world(JAX, small_bench, table, **cfg)
-    tw = chip_smoke.loop_world(PORT, small_bench, table, backend, **cfg)
-    js, jr, jt = chip_smoke.run_loop(jw, small_bench, n_windows=3, n_eval=100)
-    ts, tr, tt = chip_smoke.run_loop(tw, small_bench, n_windows=3, n_eval=100)
+    jw = scenarios.loop_world(JAX, small_bench, table, **cfg)
+    tw = scenarios.loop_world(PORT, small_bench, table, backend, **cfg)
+    js, jr, jt = scenarios.run_loop(jw, small_bench, n_windows=3, n_eval=100)
+    ts, tr, tt = scenarios.run_loop(tw, small_bench, n_windows=3, n_eval=100)
     _assert_reports_equal(jr, tr)
     assert sum(r.swapped for r in tr) >= 1
     for a, b in zip(js, ts, strict=True):
@@ -111,15 +107,15 @@ def test_loop_makes_the_jax_decisions(small_bench, backend):
     for a, b in zip(jt, tt):
         np.testing.assert_allclose(b, a, atol=1e-5, rtol=0)
     # act 2: the same guard actions, the same rollback, the same bus story
-    assert chip_smoke.inject_and_roll_back(jw, small_bench, 100) == (
-        chip_smoke.inject_and_roll_back(tw, small_bench, 100))
+    assert scenarios.inject_and_roll_back(jw, small_bench, 100) == (
+        scenarios.inject_and_roll_back(tw, small_bench, 100))
     assert tw.guard.rollbacks and tw.db.table_version == jw.db.table_version
     np.testing.assert_allclose(tw.db.embeddings, jw.db.embeddings, atol=1e-5, rtol=0)
     assert [(e.kind, e.plane) for e in jw.bus.events()] == [
         (e.kind, e.plane) for e in tw.bus.events()]
     kinds = [e.kind for e in tw.bus.events()]
     assert kinds.index("quality_drift") < kinds.index("rollback")
-    chip_smoke.close_world(tw)
+    scenarios.close_world(tw)
 
 
 def test_store_batch_and_fingerprint_match_jax():
@@ -656,19 +652,19 @@ def _measure_trajectory() -> None:
     LOOP_TRAJECTORY, then act 2's guard actions."""
     from repro.data.benchmarks import make_metatool_like
 
-    bench = make_metatool_like(seed=0, n_queries=chip_smoke.LOOP_QUERIES)
+    bench = make_metatool_like(seed=0, n_queries=scenarios.LOOP_QUERIES)
     table = JaxBagEncoder(bench.vocab).encode(bench.desc_tokens)
     for name, pkg in (("jax", JAX), ("port cpu", PORT)):
-        w = chip_smoke.loop_world(pkg, bench, table)
+        w = scenarios.loop_world(pkg, bench, table)
         t0 = time.perf_counter()
-        series, reports, _ = chip_smoke.run_loop(w, bench)
+        series, reports, _ = scenarios.run_loop(w, bench)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
         print("LOOP_TRAJECTORY = (" + ", ".join(
             f"({events}, {version}, {swapped}, {ndcg:.6f})"
             for events, version, swapped, ndcg in series) + ")", flush=True)
         for r in reports:
             print(f"  {r.reason} | gate {r.recall_before} -> {r.recall_after}", flush=True)
-        actions = chip_smoke.inject_and_roll_back(w, bench)
+        actions = scenarios.inject_and_roll_back(w, bench)
         print(f"  act 2 guard actions {actions}; bus "
               + str([e.kind for e in w.bus.events() if e.plane != "index"]), flush=True)
 

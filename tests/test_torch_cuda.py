@@ -692,3 +692,132 @@ def test_controller_refines_on_the_card(cuda_device):
     assert (acc_a, sw_a) == (acc_b, sw_b)
     np.testing.assert_allclose(t_a, t_b, atol=1e-5, rtol=0)
     router.close()
+
+
+@functools.lru_cache(maxsize=None)
+def _scaled_toolbench(n_tools):
+    """(ToolBench-like bench, its encoder, the table scaled to n_tools, the
+    encoded queries), on the CPU."""
+    from repro_torch.data.benchmarks import make_toolbench_like
+    from repro_torch.embedding.bag_encoder import BagEncoder
+
+    bench = make_toolbench_like(seed=0)
+    enc = BagEncoder(bench.vocab, device="cpu")
+    table = scale_tool_corpus(enc.encode(bench.desc_tokens), n_tools, seed=0)
+    return bench, enc, table, enc.encode(bench.query_tokens)
+
+
+def test_ivf_recall_against_fused_on_the_card(cuda_device):
+    """IVF built and queried on the card: Recall@5 >= 0.98 against the
+    fused backend's exact result, the same k-means iterations and recall
+    (within 0.005) as the same build on the CPU, and exact similarities."""
+    from repro_torch.index import FusedBackend, IVFBackend
+
+    _, _, table, queries = _scaled_toolbench(30_000)
+    exact = FusedBackend(table, 0, device=cuda_device).topk(queries, 5)[1]
+    card = IVFBackend(table, 0, device=cuda_device)
+    host = IVFBackend(table, 0, device="cpu")
+    assert card.centroids.device.type == cuda_device.type and card._codes.dtype == torch.int8
+    assert card.kmeans_iters_run == host.kmeans_iters_run
+    recall = {}
+    for name, ivf in (("card", card), ("host", host)):
+        scores, idx = ivf.topk(queries, 5)
+        recall[name] = np.mean([len(set(a) & set(b)) / 5 for a, b in zip(exact, idx)])
+        want = np.einsum("qkd,qd->qk", table[idx].astype(np.float64), queries.astype(np.float64))
+        np.testing.assert_allclose(scores, want, atol=1e-5, rtol=0)
+    assert recall["card"] >= 0.98 and abs(recall["card"] - recall["host"]) <= 0.005, recall
+    empty = card.topk(queries[:0], 5)
+    assert empty[0].shape == (0, 5) and empty[1].dtype == np.int64
+
+
+def _learning_world(device):
+    """A MetaTool-like world served by a fused router on `device`, its
+    outcome store, a stage guard, and a learning controller whose plan
+    always admits the adapter."""
+    from repro_torch.control import OutcomeStore
+    from repro_torch.core.deployment import DeploymentPlan
+    from repro_torch.data.benchmarks import make_metatool_like
+    from repro_torch.embedding.bag_encoder import BagEncoder
+    from repro_torch.learn import LearnConfig, LearningController, StageGuard, StageGuardConfig
+    from repro_torch.router.gateway import SemanticRouter
+    from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+
+    bench = make_metatool_like(seed=0, n_queries=1200)
+    enc = BagEncoder(bench.vocab, device="cpu")
+    db = ToolsDatabase([ToolRecord(i, f"t{i}", bench.desc_tokens[i], 0)
+                        for i in range(bench.n_tools)], enc.encode(bench.desc_tokens))
+    store = OutcomeStore(n_tools=bench.n_tools)
+    router = SemanticRouter(db, embed_fn=enc.encode_one, embed_batch_fn=enc.encode, k=5,
+                            outcome_sink=store.append, backend="fused", device=device)
+    guard = StageGuard(router, StageGuardConfig(min_samples=32))
+
+    def plan(n_tools, n_examples):
+        return DeploymentPlan(refine=True, mlp_reranker=False, contrastive_adapter=True,
+                              density=n_examples / n_tools, reason="adapter forced (test)")
+
+    learner = LearningController(db, store, router, enc.encode, guard=guard, plan_fn=plan,
+                                 config=LearnConfig(min_new_events=500, min_queries=20))
+    return SimpleNamespace(bench=bench, router=router, guard=guard, learner=learner)
+
+
+def _serve_labelled(w, idx, observe=False):
+    for lo in range(0, len(idx), 64):
+        chunk = idx[lo:lo + 64]
+        results = w.router.route_batch([w.bench.query_tokens[i] for i in chunk])
+        for qi, r in zip(chunk, results):
+            for t in r.tools:
+                w.router.record_outcome(w.bench.query_tokens[qi], t,
+                                        int(t in w.bench.relevant[qi]))
+            if observe:
+                w.guard.observe(r.stage_version, r.tools, w.bench.relevant[qi])
+
+
+def _heldout(w):
+    from repro_torch.metrics.retrieval import ndcg_at_k
+
+    idx = w.bench.test_idx[:200]
+    results = w.router.route_batch([w.bench.query_tokens[i] for i in idx])
+    return float(np.mean([ndcg_at_k(r.tools, w.bench.relevant[i], 5)
+                          for i, r in zip(idx, results)]))
+
+
+def test_learning_step_promotes_on_the_card(cuda_device):
+    """One LearningController step trains the adapter on the card, gates it
+    on the card and promotes it: the served params live on the card and the
+    held-out NDCG@5 rises."""
+    w = _learning_world(cuda_device)
+    assert w.learner.device == cuda_device
+    before = _heldout(w)
+    _serve_labelled(w, w.bench.train_idx)
+    rep = w.learner.step()
+    d = rep.decisions["adapter"]
+    assert d.action == "promoted" and d.ndcg_candidate > d.ndcg_current, d
+    _, stages = w.router.stage_set()
+    assert all(v.device.type == cuda_device.type for v in stages.adapter_params.values())
+    assert _heldout(w) > before
+    w.router.close()
+
+
+def test_stage_demotion_restores_exactly_on_the_card(cuda_device):
+    """A corrupted adapter set out of band is demoted by the StageGuard and
+    the restored StageSet serves exactly what the good one served."""
+    import dataclasses
+
+    w = _learning_world(cuda_device)
+    _serve_labelled(w, w.bench.train_idx)
+    assert w.learner.step().decisions["adapter"].action == "promoted"
+    good = _heldout(w)
+    _serve_labelled(w, w.bench.test_idx[:200], observe=True)
+    sv, live = w.router.stage_set()
+    rng = np.random.default_rng(0)
+    bad = {k: torch.from_numpy(rng.normal(scale=0.5, size=tuple(v.shape)).astype(np.float32))
+           .to(cuda_device) for k, v in live.adapter_params.items()}
+    w.router.set_stages(dataclasses.replace(live, adapter_params=bad), expect_version=sv)
+    assert _heldout(w) < good
+    for idx in np.array_split(w.bench.test_idx, 3):
+        _serve_labelled(w, idx, observe=True)
+        if w.learner.step().guard.action == "demoted":
+            break
+    assert w.guard.demotions and w.router.stage_set()[1].adapter_artifact == live.adapter_artifact
+    assert _heldout(w) == good
+    w.router.close()

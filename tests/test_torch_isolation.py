@@ -55,7 +55,7 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.obs.summary", "repro_torch.obs.events", "repro_torch.obs.trace",
             "repro_torch.obs.quality", "repro_torch.obs.timeseries", "repro_torch.obs.health",
             "repro_torch.router.latency", "repro_torch.traffic.generator",
-            "repro_torch.traffic.harness"} <= set(modules)
+            "repro_torch.traffic.harness", "repro_torch.scenarios"} <= set(modules)
     blocked = ("jax", "repro", "msgpack", "zstandard")
     code = (
         "import importlib, sys, tempfile\n"
@@ -126,3 +126,27 @@ def test_entry_points_default_to_the_card(no_cuda):
     router = SemanticRouter(db, embed_fn=lambda t: table[0], device="cpu", metrics=False)
     assert router.device == torch.device("cpu")
     assert router.route(np.zeros(1, np.int64)).tools[0] == 0
+
+
+def test_learning_and_ivf_entry_points_default_to_the_card(no_cuda):
+    from repro_torch.index import IVFBackend
+    from repro_torch.learn import AdapterTrainer, RerankerTrainer, TrainedStage, stage_ndcg
+    from repro_torch.router.stages import StageSet
+
+    table = np.eye(8, 384, dtype=np.float32)
+    db = ToolsDatabase([ToolRecord(i, f"t{i}", np.zeros(1, np.int64), 0) for i in range(8)],
+                       table)
+    trained = TrainedStage("adapter", {"w1": np.zeros((384, 256), np.float32)}, {}, {})
+    for build in (
+        lambda: IVFBackend(table, 0),
+        lambda: ToolIndexManager(db, backend="ivf"),
+        lambda: AdapterTrainer(),
+        lambda: RerankerTrainer(),
+        lambda: trained.apply_to(StageSet()),
+        lambda: stage_ndcg(table, table[:2], [np.zeros(1, np.int64)] * 2,
+                           np.eye(2, 8, dtype=np.float32), StageSet()),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    # on the CPU when asked
+    assert IVFBackend(table, 0, device="cpu").topk(table[:2], 3)[1][:, 0].tolist() == [0, 1]
