@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, model pool, offline OATS
-pipeline, online refinement loop, learning plane and IVF backend once on
-one NVIDIA card.
+pipeline, online refinement loop, learning plane, IVF backend and serve
+launcher once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -26,7 +26,10 @@ package `repro`. Phases, each of which fails the run by raising:
                attention and SSD scan kernels also at the inputs that a
                2,048-token prompt gives them in layers 0 and 31 of
                full-width hymba-1.5b, and the whole reduced model with the
-               kernels against the same model with the plain versions.
+               kernels against the same model with the plain versions; the
+               launcher's shapes too: topk_sim at batch 16 over 100,000
+               and 199 tools, flash at hymba-1.5b's and qwen2.5-3b's
+               32-token prefill, the scan at hymba-1.5b's.
                The flash kernel and its plain version are also measured
                against float64 at the init's own attention scale, which
                the pool rescales (no tolerance: a record of why);
@@ -108,6 +111,28 @@ package `repro`. Phases, each of which fails the run by raising:
                exact and by the index counted, every result's scores the
                similarities of the table its version names, no build
                failure);
+ 11. launch  — (run before 7) `repro_torch.launch.serve.main` in process,
+               as a user runs it (LAUNCH_RUNS): (a) full-width hymba-1.5b
+               behind the fused router over 100,000 tools with the route
+               cache, the learning step and the whole obs plane, (b)
+               full-width qwen2.5-3b after S3's fit; each again with
+               --smoke --device cpu, which must print the same R@5 (bar
+               rows reordered inside near-ties, counted), outcome count,
+               index stats, cache line, plan, decisions, traces and dumps
+               (burns of the 10 ms latency SLO apart: the CPU's batches
+               over 100,000 tools take ~40 ms), health ok on the card; (b)
+               deploys a table S3's adapter transformed, trained on each
+               device's own generator, so its card results are held
+               against the card's table served on the CPU and its R@5 is
+               printed, not held; every kernel call on the route its route
+               function gives, one flash and one scan call a layer a
+               request; the topk_sim probe counts the library plus every
+               route launched so far, and a JitProfiler baselined after
+               (a) counts nothing over a second identical serving pass; no
+               nvcc run; prints the selection p50/p99, prefill and decode
+               ms, the library loads and first launches, and route_batch
+               at batch 16 over 100,000 tools with the full obs plane
+               against a bare router, in turns;
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -118,7 +143,8 @@ package `repro`. Phases, each of which fails the run by raising:
                as the batch grows; the host dispatch of one small call
                against its device time; flash attention's two kernels on
                the same bf16 inputs, in turns; each SSD scan phase's device
-               time); per-phase p50 and per-batch p50/p99 of the gateway.
+               time; the launcher's shapes); per-phase p50 and per-batch
+               p50/p99 of the gateway.
 
 The second-to-last line is the `kernels` JSON object, the last line
 `{"ok": true, "device": {...}}`. TF32 is switched off for matmuls and
@@ -207,6 +233,33 @@ LEARN_DAEMON_INTERVAL_S, LEARN_DAEMON_DEADLINE_S = 0.05, 180.0
 IVF_RECALL_FLOOR = 0.98  # tests/test_index.py's floor against exact
 IVF_CALLS = 64  # timed batches per size
 IVF_SWAP_BATCHES = 8  # index-served batches before and after each swap
+# the serve launcher (phase 11), `repro_torch.launch.serve.main` in process
+# as a user runs it: (a) full-width hymba-1.5b behind the fused router over
+# 100,000 tools with the whole obs plane; (b) qwen2.5-3b, the launcher's
+# default, with S3's fit (adapter and re-ranker trained on the card; only
+# the refined table is deployed). Each again with --smoke --device cpu: the
+# router does not depend on --smoke
+LAUNCH_RUNS = {
+    "a": ["--arch", "hymba-1.5b", "--backend", "fused", "--num-tools", "100000",
+          "--requests", "16", "--route-batch", "16", "--max-new-tokens", "8", "--route-cache",
+          "--learn", "--metrics-port", "0", "--trace-every", "1", "--profile-daemons"],
+    "b": ["--arch", "qwen2.5-3b", "--stage", "oats-s3", "--backend", "fused"],
+}
+LAUNCH_CARD_ARGS = ()  # more arguments of the card runs (a CPU rehearsal adds --smoke)
+# (c) `python -m repro_torch.launch.serve` in a process of its own, on the
+# card and on the CPU: in a fresh process no route has launched before the
+# launcher's warm-up, and the ring ticks through serving and the learning
+# step. 480 requests over 200 tools in 30 batches, whose near-duplicate
+# queries the route cache serves, and 2,400 outcome events, 12 a tool, past
+# the re-ranker's density of 10: the learning step trains. At --smoke: the
+# pool at full width is runs (a) and (b)'s.
+LAUNCH_FRESH = ["--smoke", "--backend", "fused", "--n-tools", "200", "--n-queries", "2400",
+                "--requests", "480", "--route-batch", "16", "--max-new-tokens", "8",
+                "--route-cache", "--learn", "--metrics-port", "0"]
+LAUNCH_FRESH_TIMEOUT_S = 240
+LAUNCH_FRESH_MIN_SERVE_S = 2.0  # two ring ticks (1 s) after the first served batch
+LATENCY_SLO = "route_p99_budget"  # default_slos()' 10 ms batch budget
+LAUNCH_OBS_ROUNDS, LAUNCH_OBS_BATCHES = 10, 200  # the obs plane, its parts, a bare router
 
 
 def log(*parts) -> None:
@@ -296,9 +349,12 @@ def topk_bound(n_q: int, n_t: int, d: int, k: int, rescored: int = 0):
     """{"cuda_cores": (ms, by), "tensor_cores": (ms, by)}: each input read
     once, the outputs written once; 2QTD FLOPs as float32 FMAs, or as TF32
     products on the tensor cores plus the float32 rescore of `rescored`
-    (query, row) pairs (2D FLOPs each), as this run's data needed."""
-    nbytes = 4 * (n_q * d + n_t * d) + n_q * k * (4 + 8)
-    flops = 2 * n_q * n_t * d
+    (query, row) pairs (2D FLOPs each), as this run's data needed. The
+    bytes and FLOPs are the kernel's own count, `topk_sim.kernel.cost`."""
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+
+    work = topk_kernel.cost(n_q, n_t, d, k)
+    nbytes, flops = work["bytes_accessed"], work["flops"]
     t_ops = (flops / PEAK_TF32_FLOP_PER_S + 2 * d * rescored / PEAK_F32_FLOP_PER_S) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"cuda_cores": bound(nbytes, flops, PEAK_F32_FLOP_PER_S),
@@ -395,10 +451,10 @@ def timed_on_card(fn, into):
     """`fn`, appending each call's milliseconds, between card syncs, to `into`."""
     import torch
 
-    def call(*args):
+    def call(*args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        result = fn(*args)
+        result = fn(*args, **kwargs)
         torch.cuda.synchronize()
         into.append((time.perf_counter() - t) * 1e3)
         return result
@@ -1209,6 +1265,480 @@ def ivf_phase(dev, card, tb_bench, tb_enc, big, q_all):
 
 
 @contextlib.contextmanager
+def recording_launcher():
+    """Inside the block, record every `route_batch` (router, queries,
+    results) and every call of the three kernels on the launcher's path with
+    the route its route function gives and the launches it made."""
+    from repro_torch.index import fused_backend
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.models import layers, ssm
+    from repro_torch.router.gateway import SemanticRouter
+
+    rec = dict(batches=[], topk=[], flash=[], ssd=[])
+    route_batch, topk, flash = (SemanticRouter.route_batch, fused_backend.topk_sim,
+                                layers.flash_attention)
+    ssd = ssm.ssd_ops.ssd_scan
+
+    def counted(key, mod, fn, want):
+        def wrapper(*args, **kwargs):
+            route = want(*args)
+            before = dict(getattr(mod, "launches_by_route", {"all": mod.launches}))
+            out = fn(*args, **kwargs)
+            after = getattr(mod, "launches_by_route", {"all": mod.launches})
+            rec[key].append(dict(shape=[list(a.shape) for a in args[:2]], want=route,
+                                 launched={r: n - before[r] for r, n in after.items()
+                                           if n != before[r]}))
+            return out
+        return wrapper
+
+    def recorded_route_batch(self, queries, *args, **kwargs):
+        results = route_batch(self, queries, *args, **kwargs)
+        rec["batches"].append((self, list(queries), results))
+        return results
+
+    SemanticRouter.route_batch = recorded_route_batch
+    fused_backend.topk_sim = counted(
+        "topk", topk_kernel, topk,
+        lambda q, t, k: topk_kernel.topk_route(q.shape[0], t.shape[0], q.shape[1], k, t, q))
+    layers.flash_attention = counted(
+        "flash", flash_kernel, flash,
+        lambda q, k, v, *_: flash_kernel.flash_route(q.dtype, q.shape[-1], q, k, v))
+    ssm.ssd_ops.ssd_scan = counted("ssd", ssd_kernel, ssd, lambda *_: "all")
+    try:
+        yield rec
+    finally:
+        SemanticRouter.route_batch = route_batch
+        fused_backend.topk_sim, layers.flash_attention = topk, flash
+        ssm.ssd_ops.ssd_scan = ssd
+
+
+def run_launcher(argv, on_card):
+    """One in-process `repro_torch.launch.serve.main(argv)`: its printed
+    lines, the recording of its batches and kernel calls, and on the card
+    each prefill's and decode step's milliseconds between card syncs."""
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    run = dict(argv=list(argv), prefill_ms=[], decode_ms=[])
+    originals = M.prefill, M.decode_step
+    if on_card:
+        M.prefill = timed_on_card(M.prefill, run["prefill_ms"])
+        M.decode_step = timed_on_card(M.decode_step, run["decode_ms"])
+    out = io.StringIO()
+    t = time.perf_counter()
+    try:
+        with recording_launcher() as rec, contextlib.redirect_stdout(out):
+            serve.main(argv)
+    finally:
+        M.prefill, M.decode_step = originals
+    run.update(seconds=time.perf_counter() - t, text=out.getvalue(), rec=rec,
+               printed=serve.printed_results(out.getvalue()))
+    return run
+
+
+def launch_parity(name, card_run, cpu_run, n_requests, same_table):
+    """Card against CPU: the same versions and tools a request, or a
+    ranking reordered inside near-ties (< NEAR_TIE, counted); R@5 equal but
+    for such rows; the same outcome count, index stats, cache line, plan,
+    decisions, live stages, traces and dumps (count and reasons); health ok
+    on the card, with no burn of the latency SLO (LATENCY_SLO), and on the
+    CPU ok or degraded by burns of that SLO alone, whose 10 ms budget the
+    CPU's batches over 100,000 tools do not meet (the SLO judges the
+    device's speed; its dumps are counted apart). Where the two runs deploy different tables (`same_table`
+    False: S3's adapter trains on each device's own generator and
+    transforms the table), the card's results are held against the same
+    queries served on the CPU over the card run's own table, and R@5 is
+    not held. Returns (rows that needed the near-tie rule, the two
+    deployed tables' max abs difference)."""
+    import numpy as np
+
+    from repro_torch.router.gateway import SemanticRouter
+
+    card_res = [r for _, _, res in card_run["rec"]["batches"] for r in res]
+    card_router = card_run["rec"]["batches"][0][0]
+    table_diff = float(np.abs(card_router.db.embeddings
+                              - cpu_run["rec"]["batches"][0][0].db.embeddings).max())
+    if same_table:
+        cpu_res = [r for _, _, res in cpu_run["rec"]["batches"] for r in res]
+    else:
+        replay = SemanticRouter(card_router.db, embed_fn=card_router.embed_fn,
+                                embed_batch_fn=card_router.embed_batch_fn, k=card_router.k,
+                                backend="fused", metrics=False, device="cpu")
+        cpu_res = [r for _, queries, _ in card_run["rec"]["batches"]
+                   for r in replay.route_batch(queries)]
+        replay.close()
+    n_rule = 0
+    for x, y in zip(card_res, cpu_res, strict=True):
+        if (x.table_version, x.stage_version) != (y.table_version, y.stage_version):
+            raise AssertionError(f"launch ({name}): versions differ card vs CPU")
+        if x.tools != y.tools:
+            if not same_ranking(x.tools, x.scores, y.tools, y.scores, NEAR_TIE):
+                raise AssertionError(f"launch ({name}): card {x.tools} vs CPU {y.tools}")
+            n_rule += 1
+    a, b = card_run["printed"], cpu_run["printed"]
+    if same_table and abs(a["r5"] - b["r5"]) * n_requests > n_rule + 1e-9:
+        raise AssertionError(f"launch ({name}): R@5 {a['r5']} on the card, {b['r5']} on the CPU")
+    same = ("outcomes", "index", "cache", "plan", "decisions", "live stages", "traces", "dumps")
+    for key in same:
+        if a.get(key) != b.get(key):
+            raise AssertionError(f"launch ({name}): {key} {a.get(key)!r} on the card, "
+                                 f"{b.get(key)!r} on the CPU")
+    # the card must meet the latency budget; the CPU, which serves a batch
+    # over 100,000 tools in ~40 ms, may burn that SLO alone
+    if a["health"] != "ok" or a["latency_burns"] or not (
+            b["health"] == "ok" or b["health"] == "degraded" and b["latency_burns"]):
+        raise AssertionError(f"launch ({name}): health {a['health']} / {b['health']}, latency "
+                             f"SLO burns {a['latency_burns']} / {b['latency_burns']}")
+    return n_rule, table_diff
+
+
+def launch_phase(dev, card, ever_launched, first_launch_ms):
+    """Phase 11: the serve launcher, runs (a) and (b) on the card and on the
+    CPU, the probe and a second serving pass, the obs plane's cost, and run
+    (c) in fresh processes. `ever_launched` holds the topk_sim routes
+    launched before this phase, `first_launch_ms` phase 2's first launch of
+    each route. Returns the summary; raises on any failed check."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.nvcc import LIBRARIES
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.core.pipeline import STAGE_PRESETS
+    from repro_torch.launch import serve
+    from repro_torch.obs import list_dumps
+
+    modules = {"topk_sim": topk_kernel, "flash_attention": flash_kernel, "ssd_scan": ssd_kernel}
+    builds = sum(lib.builds for lib in LIBRARIES.values())
+    out = dict(runs={}, launches=dict.fromkeys(modules, 0),
+               topk_routes=dict.fromkeys(topk_kernel.ROUTES, 0),
+               flash_routes=dict.fromkeys(flash_kernel.ROUTES, 0))
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in LAUNCH_RUNS.items():
+            for where in ("card", "cpu"):
+                on_card = where == "card"
+                args = list(argv) + [
+                    "--trace-export", f"{tmp}/{name}-{where}.jsonl",
+                    "--dump-dir", f"{tmp}/{name}-{where}-dumps"]
+                args += (["--device", str(dev), *LAUNCH_CARD_ARGS] if on_card
+                         else ["--smoke", "--device", "cpu"])
+                if on_card:  # this path's launches: the card runs' own
+                    for mod in modules.values():
+                        mod.launches = 0
+                    topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+                    flash_kernel.launches_by_route = dict.fromkeys(flash_kernel.ROUTES, 0)
+                run = run_launcher(args, on_card)
+                # dumps by reason, but for burns of the 10 ms latency SLO,
+                # which judge the device's own speed: counted apart
+                dumps = [(d.manifest["reason"], (d.manifest.get("trigger") or {}).get("slo"))
+                         for d in list_dumps(f"{tmp}/{name}-{where}-dumps")]
+                run["printed"]["dumps"] = sorted(r for r, slo in dumps if slo != LATENCY_SLO)
+                run["printed"]["latency_burns"] = sum(slo == LATENCY_SLO for _, slo in dumps)
+                runs[(name, where)] = run
+                for line in run["text"].splitlines():
+                    log(f"launch ({name}, {where}) | {line}")
+                if not on_card:
+                    continue
+                # the kernels: each call on the route its route function
+                # gives; one flash and one scan call a layer a prefill
+                launches = {k: mod.launches for k, mod in modules.items()}
+                for key in ("topk", "flash"):
+                    for call in run["rec"][key]:
+                        n = 1 if key == "flash" or call["want"] == "cluster" else 2
+                        if call["launched"] != {call["want"]: n}:
+                            raise AssertionError(f"launch ({name}): {key} call {call['shape']} "
+                                                 f"launched {call['launched']}, expected "
+                                                 f"{n} on {call['want']}")
+                if any(call["launched"] != {"all": len(ssd_kernel.PHASES)}
+                       for call in run["rec"]["ssd"]):
+                    raise AssertionError(f"launch ({name}): an ssd_scan call did not launch "
+                                         f"its three phases")
+                cfg = serve.pool_config(argv[argv.index("--arch") + 1],
+                                        "--smoke" in LAUNCH_CARD_ARGS)
+                n_req = sum(len(b[2]) for b in run["rec"]["batches"])
+                want = {"flash_attention": n_req * cfg.n_layers,
+                        "ssd_scan": n_req * cfg.n_layers * len(ssd_kernel.PHASES)
+                        if cfg.has_ssm else 0,
+                        "topk_sim": sum(sum(c["launched"].values()) for c in run["rec"]["topk"])}
+                if launches != want or not launches["topk_sim"] or len(run["prefill_ms"]) != n_req:
+                    raise AssertionError(f"launch ({name}): launches {launches}, expected {want} "
+                                         f"({len(run['prefill_ms'])} prefills)")
+                for k in modules:
+                    out["launches"][k] += launches[k]
+                for r, n in topk_kernel.launches_by_route.items():
+                    out["topk_routes"][r] += n
+                for r, n in flash_kernel.launches_by_route.items():
+                    out["flash_routes"][r] += n
+                run["launches"] = launches
+                run["topk_routes"] = dict(topk_kernel.launches_by_route)
+                if name == "a":
+                    out["profile"] = launch_probe_checks(dev, run, ever_launched)
+                    out["obs_cost"] = launch_obs_cost(dev, card, run)
+            card_run, cpu_run = runs[(name, "card")], runs[(name, "cpu")]
+            n_req = sum(len(b[2]) for b in card_run["rec"]["batches"])
+            stage = argv[argv.index("--stage") + 1] if "--stage" in argv else "oats-s1"
+            same_table = "adapter" not in STAGE_PRESETS[stage]
+            n_rule, table_diff = launch_parity(name, card_run, cpu_run, n_req, same_table)
+            p = card_run["printed"]
+            summary = dict(
+                argv=card_run["argv"], seconds=card_run["seconds"], cpu_seconds=cpu_run["seconds"],
+                printed=dict(p), near_tie_rows=n_rule, same_table=same_table,
+                table_max_abs_diff=table_diff, cpu_r5=cpu_run["printed"]["r5"],
+                launches=card_run["launches"], topk_routes=card_run["topk_routes"],
+                topk_calls=[c["shape"] for c in card_run["rec"]["topk"]],
+                prefill_ms=card_run["prefill_ms"],
+                prefill_ms_p50=float(np.percentile(card_run["prefill_ms"], 50)),
+                decode_ms_p50=float(np.percentile(card_run["decode_ms"], 50)),
+                decode_ms_p99=float(np.percentile(card_run["decode_ms"], 99)),
+                decode_steps=len(card_run["decode_ms"]))
+            out["runs"][name] = summary
+            log(f"launch ({name}) on the card: {card_run['seconds']:.1f} s in process "
+                f"({cpu_run['seconds']:.1f} s on the CPU at --smoke); {n_req} requests, router R@5 {p['r5']:.3f}, selection "
+                f"p50/p99 {p['selection_ms']} ms a query (a batch's time over its size; "
+                f"{len(card_run['rec']['batches'])} batches); prefill ms p50 {summary['prefill_ms_p50']:.2f} "
+                f"(each: {[round(x, 2) for x in card_run['prefill_ms']]}), decode ms a token p50 "
+                f"{summary['decode_ms_p50']:.2f} p99 {summary['decode_ms_p99']:.2f} over "
+                f"{summary['decode_steps']} steps; launches " + json.dumps(card_run["launches"])
+                + ", topk_sim by route " + json.dumps(card_run["topk_routes"])
+                + f"; results, plan, decisions, traces ({p.get('traces')}) and dumps "
+                f"({p['dumps']}) equal to the CPU run's (rows reordered inside near-ties: "
+                f"{n_rule}; the CPU run's latency SLO burns "
+                f"{cpu_run['printed']['latency_burns']}, health {cpu_run['printed']['health']}"
+                + ("" if same_table else
+                   f"; results held against the card's own table served on the CPU: S3's "
+                   f"adapter trained on each device's generator, tables {table_diff:.3g} "
+                   f"apart, R@5 on the CPU run {cpu_run['printed']['r5']:.3f}, not held")
+                + f"); health {p['health']} on {card}")
+        out["fresh"] = launch_fresh(dev, card, tmp)
+    if sum(lib.builds for lib in LIBRARIES.values()) != builds:
+        raise AssertionError("nvcc ran inside the launch phase")
+    out["library_load_s"] = {n: lib.info.get("seconds") for n, lib in LIBRARIES.items()}
+    out["first_launch_ms"] = dict(first_launch_ms)
+    log("launch: kernel libraries loaded (build included) in s "
+        + json.dumps(out["library_load_s"])
+        + "; topk_sim routes' first launch ms (phase 2, between syncs, the lazy load of "
+        "their kernels in it) "
+        + json.dumps({r: round(v, 3) for r, v in out["first_launch_ms"].items()})
+        + f"; no nvcc run in this phase on {card}")
+    return out
+
+
+def launch_fresh(dev, card, tmp):
+    """Run (c): the launcher with LAUNCH_FRESH in a process of its own on the
+    card and one on the CPU, started together. On the card the first
+    launch of each route comes in the launcher's warm-up, before its
+    profiler's baseline: health ok and no dump, over a serving pass long
+    enough for the ring to judge the probe after the first batch. The two
+    print the same R@5, outcome count, index stats, route cache line, plan
+    and trace count, and write the same dumps; the re-ranker trains on both
+    (its init and dropout come from each device's generator, so the
+    decisions are printed, not held)."""
+    import os
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import list_dumps
+
+    src = str(Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    procs, runs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for where in ("card", "cpu"):
+            argv = [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_FRESH,
+                    "--device", str(dev) if where == "card" else "cpu",
+                    "--trace-export", f"{tmp}/c-{where}.jsonl",
+                    "--dump-dir", f"{tmp}/c-{where}-dumps"]
+            procs[where] = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                            text=True, env=env)
+        for where, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=LAUNCH_FRESH_TIMEOUT_S)
+            for line in stdout.splitlines():
+                log(f"launch (c, {where}) | {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"launch (c, {where}) exited {proc.returncode}: "
+                                     f"{stderr[-3000:]}")
+            got = serve.printed_results(stdout)
+            got["dumps"] = sorted(d.manifest["reason"]
+                                  for d in list_dumps(f"{tmp}/c-{where}-dumps"))
+            runs[where] = dict(printed=got, seconds=time.perf_counter() - t0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    a, b = runs["card"]["printed"], runs["cpu"]["printed"]
+    if a["health"] != "ok" or a["dumps"]:
+        raise AssertionError(f"launch (c): in a fresh process the card run reads health "
+                             f"{a['health']} with dumps {a['dumps']}")
+    if a["serve_s"] < LAUNCH_FRESH_MIN_SERVE_S:
+        raise AssertionError(f"launch (c): served in {a['serve_s']} s, too short for the ring "
+                             f"to judge the probe after the first batch")
+    for key in ("r5", "outcomes", "index", "cache", "plan", "traces", "dumps"):
+        if a.get(key) != b.get(key):
+            raise AssertionError(f"launch (c): {key} {a.get(key)!r} on the card, "
+                                 f"{b.get(key)!r} on the CPU")
+    trained = {w: [d for d in r["printed"]["decisions"] if d.split()[0] == "rerank"]
+               for w, r in runs.items()}
+    if any(len(d) != 1 or "suppressed" in d[0] for d in trained.values()):
+        raise AssertionError(f"launch (c): the re-ranker did not train: {trained}")
+    log(f"launch (c) in fresh processes: {runs['card']['seconds']:.1f} s; card serving "
+        f"{a['serve_s']} s, health {a['health']}, no dump; router R@5 {a['r5']:.3f}, "
+        f"selection p50/p99 {a['selection_ms']} ms a query over 30 batches; "
+        + a["cache"] + f"; {a['plan']}; decisions card {a['decisions']} CPU {b['decisions']}; "
+        f"results, cache, plan, traces ({a.get('traces')}) and dumps equal to the CPU run's "
+        f"on {card}")
+    return dict(argv=list(LAUNCH_FRESH), seconds=runs["card"]["seconds"], printed=a,
+                cpu_decisions=b["decisions"])
+
+
+def launch_probe_checks(dev, run, ever_launched):
+    """After run (a): the topk_sim probe counts the library plus every route
+    launched in this process, and a JitProfiler baselined now counts no
+    load and no first launch over a second identical serving pass."""
+    import torch
+
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.obs import JitProfiler, MetricsRegistry
+    from repro_torch.router.gateway import SemanticRouter
+
+    launched = set(ever_launched) | {r for r, n in run["topk_routes"].items() if n}
+    size = topk_kernel.PROBE._cache_size()
+    if topk_kernel.LIBRARY.loads != 1 or size != 1 + len(launched):
+        raise AssertionError(f"launch: the topk_sim probe counts {size}, not 1 + the routes "
+                             f"launched {sorted(launched)}")
+    prof = JitProfiler(registry=MetricsRegistry())
+    prof.collect()
+    router_a = run["rec"]["batches"][0][0]
+    again = SemanticRouter(router_a.db, embed_fn=router_a.embed_fn,
+                           embed_batch_fn=router_a.embed_batch_fn, k=router_a.k,
+                           backend="fused", metrics=False, device=dev)
+    before = topk_kernel.launches
+    for _, queries, _ in run["rec"]["batches"]:
+        again.route_batch(queries)
+    torch.cuda.synchronize()
+    again.close()
+    prof.collect()
+    snap = prof.snapshot()["jits"]["topk_sim"]
+    if snap["compiles_total"] != 0 or topk_kernel.launches == before:
+        raise AssertionError(f"launch: a second serving pass counted {snap} "
+                             f"({topk_kernel.launches - before} launches)")
+    log(f"launch: topk_sim probe _cache_size() {size} = the library + routes "
+        f"{sorted(launched)}; a JitProfiler baselined after run (a) counts "
+        f"{snap['compiles_total']} loads or first launches over a second identical serving "
+        f"pass ({topk_kernel.launches - before} launches)")
+    return dict(cache_size=size, routes=sorted(launched), second_pass_compiles=0,
+                second_pass_launches=topk_kernel.launches - before)
+
+
+def launch_obs_cost(dev, card, run):
+    """route_batch at batch 16 over run (a)'s 100,000-tool table: a router
+    with the full obs plane (registry, tracer, bus, quality monitor
+    watching the table, a ring ticking every second with profiler.collect
+    and slo_engine.evaluate, as the launcher wires them) against a bare one
+    (metrics off) and against routers with one part of the plane each (the
+    registry; the registry and the tracer; the registry, the bus and the
+    quality monitor), LAUNCH_OBS_ROUNDS rounds in turns of
+    LAUNCH_OBS_BATCHES batches, the order rotated a round; host clock a
+    batch (results on the host)."""
+    import numpy as np
+
+    from repro_torch.data.benchmarks import make_metatool_like
+    from repro_torch.obs import (EventBus, JitProfiler, MetricsRegistry, QualityConfig,
+                                 QualityMonitor, RouteTracer, SLOEngine, TimeSeriesRing)
+    from repro_torch.router.gateway import SemanticRouter
+
+    router_a = run["rec"]["batches"][0][0]
+    db = router_a.db
+    bench = make_metatool_like(seed=0, n_tools=199, n_queries=800)  # the launcher's
+    bs = 16
+    n_q = bench.n_queries
+    blocks = [[bench.query_tokens[(s + j) % n_q] for j in range(bs)]
+              for s in range(0, bs * LAUNCH_OBS_BATCHES, bs)]
+    reg, bus = MetricsRegistry(), EventBus()
+    quality = QualityMonitor(QualityConfig(drift_every=4), registry=reg, bus=bus)
+    detach = [bus.watch_db(db), quality.watch_db(db)]
+    kw = dict(embed_fn=router_a.embed_fn, embed_batch_fn=router_a.embed_batch_fn, k=5,
+              backend="fused", device=dev)
+    # the whole plane, bare, and the plane's parts one at a time (each with
+    # a registry of its own), to tell which instrument costs
+    part_reg = {name: MetricsRegistry() for name in ("quality", "metrics", "tracer")}
+    part_bus = EventBus()
+    part_quality = QualityMonitor(QualityConfig(drift_every=4), registry=part_reg["quality"],
+                                  bus=part_bus)
+    detach += [part_bus.watch_db(db), part_quality.watch_db(db)]
+    routers = {
+        "obs": SemanticRouter(db, metrics=reg, tracer=RouteTracer(sample_every=8, seed=0),
+                              bus=bus, quality=quality, **kw),
+        "bare": SemanticRouter(db, metrics=False, **kw),
+        "metrics": SemanticRouter(db, metrics=part_reg["metrics"], **kw),
+        "metrics+tracer": SemanticRouter(db, metrics=part_reg["tracer"],
+                                         tracer=RouteTracer(sample_every=8, seed=0), **kw),
+        "metrics+bus+quality": SemanticRouter(db, metrics=part_reg["quality"], bus=part_bus,
+                                              quality=part_quality, **kw)}
+    ring = TimeSeriesRing(reg, bus=bus)
+    slo = SLOEngine(ring, bus=bus, registry=reg)
+    prof = JitProfiler(registry=reg)
+    prof.collect()
+    ring.start(interval_s=1.0, on_tick=lambda r: (prof.collect(), slo.evaluate()))
+    ms = {name: [] for name in routers}
+    try:
+        with no_gc():
+            for r in range(LAUNCH_OBS_ROUNDS):
+                order = list(routers)[r % len(routers):] + list(routers)[:r % len(routers)]
+                for name in (order if r % 2 == 0 else order[::-1]):
+                    routers[name].route_batch(blocks[0])  # warm-up, not timed
+                    for b in blocks:
+                        t = time.perf_counter()
+                        routers[name].route_batch(b)
+                        ms[name].append((time.perf_counter() - t) * 1e3)
+    finally:
+        ring.stop()
+    if ring.last_loop_error is not None:
+        raise AssertionError(f"launch obs cost: the ring failed: {ring.last_loop_error}")
+    # one tick's own cost, on this thread: the snapshot, the profiler's
+    # poll and the SLO evaluation the ring daemon runs every second
+    tick_ms = []
+    for _ in range(20):
+        t = time.perf_counter()
+        ring.tick()
+        prof.collect()
+        slo.evaluate()
+        tick_ms.append((time.perf_counter() - t) * 1e3)
+    for fn in detach:
+        fn()
+    for router in routers.values():
+        router.close()
+    per_round = {name: [dict(p50=float(np.percentile(v[i:i + LAUNCH_OBS_BATCHES], 50)),
+                             p99=float(np.percentile(v[i:i + LAUNCH_OBS_BATCHES], 99)))
+                        for i in range(0, len(v), LAUNCH_OBS_BATCHES)] for name, v in ms.items()}
+    res = {name: dict(p50_ms=float(np.percentile(v, 50)), p99_ms=float(np.percentile(v, 99)),
+                      rounds=per_round[name]) for name, v in ms.items()}
+    res.update(ring_ticks=len(ring) - len(tick_ms), tick_ms_p50=float(np.percentile(tick_ms, 50)),
+               overhead_pct=100 * (res["obs"]["p50_ms"] / res["bare"]["p50_ms"] - 1))
+    log(f"launch obs cost: route_batch at batch {bs} over {db.embeddings.shape[0]} tools, "
+        f"{LAUNCH_OBS_ROUNDS} rounds in turns of {LAUNCH_OBS_BATCHES}: full obs plane p50 "
+        f"{res['obs']['p50_ms']:.4f} p99 {res['obs']['p99_ms']:.4f} ms, bare p50 "
+        f"{res['bare']['p50_ms']:.4f} p99 {res['bare']['p99_ms']:.4f} ms (p50 "
+        f"{res['overhead_pct']:+.1f} %; limit +10 %, not gated); by round (p50) obs "
+        f"{[round(x['p50'], 4) for x in per_round['obs']]} bare "
+        f"{[round(x['p50'], 4) for x in per_round['bare']]}; the parts alone p50 / p99 "
+        + json.dumps({name: [round(res[name]["p50_ms"], 4), round(res[name]["p99_ms"], 4)]
+                      for name in routers if name not in ("obs", "bare")})
+        + f"; {res['ring_ticks']} ring ticks "
+        f"during the turns, one tick (snapshot, profiler.collect, slo_engine.evaluate) "
+        f"{res['tick_ms_p50']:.4f} ms p50 on {card}")
+    return res
+
+
+@contextlib.contextmanager
 def no_gc():
     """Collector pauses land on arbitrary batches and a short stream's p99
     is its max: collect first, then pause the collector."""
@@ -1247,6 +1777,7 @@ def main() -> int:
     from repro_torch.core.evaluate import BenchmarkEvaluator
     from repro_torch.core.refine import RefineConfig, refine_with_gate
     from repro_torch.common.bucketing import pad_amount
+    from repro_torch.configs import get_config
     from repro_torch.core.reranker import LAYERS, rerank_topk_scored
     from repro_torch.core.retrieval import NEG_INF, topk_dense
     from repro_torch.data.benchmarks import (make_metatool_like, make_toolbench_like,
@@ -1258,6 +1789,7 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
     from repro_torch.kernels.topk_sim.ref import topk_sim_ref
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.models import model as M
     from repro_torch.models.config import reduced
     from repro_torch.obs.metrics import MetricsRegistry
@@ -1298,6 +1830,22 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log("  ptxas:", line.strip())
     log(f"build: all kernels in {time.perf_counter() - t_build:.2f} s")
+    # each topk_sim route's first launch in this process, between card
+    # syncs: CUDA loads the route's kernels then (the launcher's warm-up
+    # makes these launches before it serves)
+    if topk_kernel.launched_routes:
+        raise AssertionError(f"topk_sim launched before phase 2: {topk_kernel.launched_routes}")
+    first_launch_ms, first_gen = {}, torch.Generator(device=dev).manual_seed(1)
+    for route, (n_q, n_t, k) in (("cluster", (16, 199, 5)), ("split", (8, 100_000, 5)),
+                                 ("wgmma", (16, 100_000, 5)), ("select", (8, 2413, 130))):
+        q, t = unit_rows(n_q, 384, first_gen), unit_rows(n_t, 384, first_gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        topk_kernel.topk_sim_cuda(q, t, k, route=route)
+        torch.cuda.synchronize()
+        first_launch_ms[route] = (time.perf_counter() - t0) * 1e3
+    log("build: topk_sim routes' first launch ms (between syncs, the lazy load of their "
+        "kernels in it) " + json.dumps({r: round(v, 3) for r, v in first_launch_ms.items()}))
 
     # --------------------------------------------------- 3. kernels vs plain
     max_err = 0.0
@@ -1377,7 +1925,10 @@ def main() -> int:
                            # batch, a held-out block padded to 512, the re-ranker's
                            # C = 25; the IVF phase's exact reference tail block
                            (1, 600, 384, 5), (64, 600, 384, 5), (512, 600, 384, 5),
-                           (64, 600, 384, 25), (512, 600, 384, 25), (24, 100_000, 384, 5)]:
+                           (64, 600, 384, 25), (512, 600, 384, 25), (24, 100_000, 384, 5),
+                           # the launcher's: a batch of 16 over 100,000 tools and over
+                           # the native 199
+                           (16, 100_000, 384, 5), (16, 199, 384, 5)]:
         q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
         check_routes("random", q, t, k)
         if (n_q, n_t, k) == (33, 100_003, 25):  # all-zero rows, as the gateway pads a batch
@@ -1567,6 +2118,25 @@ def main() -> int:
         check_ssd(f"{pool_cfg.name} layer {layer}", *args)
         check_ssd(f"{pool_cfg.name} layer {layer} in float32",
                   *(a.float() if isinstance(a, torch.Tensor) else a for a in args))
+    # the launcher's prefill, a 32-token prompt: a short causal block for
+    # flash and one partial chunk for the scan. The values come from the
+    # pool's rescaled weights: the launcher's own init puts |out| near 80
+    # (the init fan-in lines above), where bf16's absolute tolerance cannot
+    # hold for kernel or plain version
+    launch_cap = capture_prefill(pool_cfg, pool_params,
+                                 capture_tokens[:, :launch_serve.PROMPT_LEN], {0, last})
+    for layer in (0, last):
+        (q, k, v), kw = launch_cap["flash"][layer]
+        check_flash(f"{pool_cfg.name} launcher prefill layer {layer}", q, k, v, **kw)
+        args, _ = launch_cap["ssd"][layer]
+        check_ssd(f"{pool_cfg.name} launcher prefill layer {layer}", *args)
+    # qwen2.5-3b's, at its own heads: 16 query heads over 2 kv heads, hd 128
+    qwen_cfg = get_config("qwen2.5-3b")
+    qwen_qkv = (randn(qwen_cfg.n_heads, launch_serve.PROMPT_LEN, qwen_cfg.hd, dtype=torch.bfloat16),
+                *(randn(qwen_cfg.n_kv_heads, launch_serve.PROMPT_LEN, qwen_cfg.hd,
+                        dtype=torch.bfloat16) for _ in range(2)))
+    qwen_kw = dict(causal=True, window=qwen_cfg.sliding_window, q_offset=0)
+    check_flash("qwen2.5-3b launcher prefill", *qwen_qkv, **qwen_kw)
 
     # the whole model, reduced, with the kernels against the plain versions
     small = reduced(pool_cfg, n_kv_heads=2, sliding_window=16)
@@ -2133,6 +2703,20 @@ def main() -> int:
             raise AssertionError(f"the {path_name} path launched topk_sim "
                                  f"{later_paths[path_name]['routes']}")
 
+    # ---------------------------------------------------------------- 11. launch
+    # the serve launcher, as a user runs it; this path's launches are the
+    # card runs' own (the phase counts them itself)
+    ever_launched = set(first_launch_ms) | {c["route"] for c in checks} | {
+        r for routes in (serve_routes, pool_topk_routes, pipe_routes, loop_routes,
+                         later_paths["learn"]["routes"], later_paths["ivf"]["routes"])
+        for r, n in routes.items() if n}
+    t_launch = time.perf_counter()
+    launch = launch_phase(dev, card, ever_launched, first_launch_ms)
+    launch["seconds"] = time.perf_counter() - t_launch
+    log(f"launch path: {launch['seconds']:.1f} s, launches " + json.dumps(launch["launches"])
+        + ", topk_sim by route " + json.dumps(launch["topk_routes"]) + ", flash by route "
+        + json.dumps(launch["flash_routes"]))
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -2356,11 +2940,71 @@ def main() -> int:
         "(profiler, per phase " + json.dumps({ph: round(v, 4) for ph, v in s_phase_ms.items()})
         + f"), plain {s_plain:.4f} ms, no library call, bound {s_bound:.4f} ms ({s_by}) on {card}")
 
+    # the launcher's shapes: topk_sim at batch 16 over 100,000 and 199 tools
+    # (medians of rounds in turns with the library call), flash at hymba's
+    # and qwen2.5-3b's 32-token prefill, the scan at hymba's
+    launch_times = {"topk_sim": [], "flash_attention": [], "ssd_scan": []}
+    q16 = torch.from_numpy(q_all[:16]).to(dev)
+    for table in (table_big, table_big[:199]):
+        n_t, d = table.shape
+        route = topk_kernel.topk_route(16, n_t, d, 5, table, q16)
+        rounds = alternating({"kernel": lambda t=table: topk_kernel.topk_sim_cuda(q16, t, 5),
+                              "library": lambda t=table: torch.topk(q16 @ t.T, 5)})
+        topk_kernel.reset_rescored()
+        topk_kernel.topk_sim_cuda(q16, table, 5)
+        resc = topk_kernel.rescored() if route == "wgmma" else 0
+        bound_ms, bound_by = topk_bound(16, n_t, d, 5, rescored=resc)[
+            "tensor_cores" if route == "wgmma" else "cuda_cores"]
+        row = dict(shape=[16, n_t, d, 5], route=route, ms=float(np.median(rounds["kernel"])),
+                   plain_ms=cuda_ms(lambda t=table: topk_sim_ref(q16, t, 5)),
+                   library_ms=float(np.median(rounds["library"])), bound_ms=bound_ms,
+                   bound_by=bound_by, rescored_per_call=resc, rounds_ms=rounds)
+        launch_times["topk_sim"].append(row)
+        log(f"time topk_sim launcher Q=16 T={n_t} k=5 ({route}): kernel median {row['ms']:.4f} "
+            f"ms, torch.topk(q@t.T) {row['library_ms']:.4f}, plain {row['plain_ms']:.4f}, bound "
+            f"{bound_ms:.4f} ({bound_by}) on {card}")
+    for arch, (lq, lk, lv), lkw in (("hymba-1.5b", *launch_cap["flash"][0]),
+                                    ("qwen2.5-3b", qwen_qkv, qwen_kw)):
+        lg = lq.shape[0] // lk.shape[0]
+        lq4 = lq.view(1, *lq.shape)
+        lk4, lv4 = (t.repeat_interleave(lg, dim=0).view(lq4.shape) for t in (lk, lv))
+        lmask = attention_mask(lq.shape[1], lk.shape[1], True, lkw["window"], 0, dev)
+        b_ms, b_by = flash_bound(lq, lk, lv, True, lkw["window"], 0)
+        row = dict(model=arch, shape=dict(bh=lq.shape[0], bhkv=lk.shape[0], s=lq.shape[1],
+                                          hd=lq.shape[2], window=lkw["window"],
+                                          dtype=str(lq.dtype)),
+                   route=flash_kernel.flash_route(lq.dtype, lq.shape[2], lq, lk, lv),
+                   ms=cuda_ms(lambda: flash_kernel.flash_attention_cuda(lq, lk, lv, **lkw),
+                              iters=100),
+                   plain_ms=cuda_ms(lambda: attention_ref(lq, lk, lv, **lkw)),
+                   library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                       lq4, lk4, lv4, attn_mask=lmask), iters=100),
+                   bound_ms=b_ms, bound_by=b_by)
+        launch_times["flash_attention"].append(row)
+        log(f"time flash_attention launcher {arch} q{list(lq.shape)} kv{list(lk.shape)} "
+            f"({row['route']}): kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, SDPA "
+            f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}) on {card}")
+    l_args, _ = launch_cap["ssd"][0]
+    l_ctx = ssd_kernel.prepare(*l_args)
+    lb_ms, lb_by = ssd_bound(*l_args[:5])
+    row = dict(model="hymba-1.5b", shape=dict(x=list(l_args[0].shape), n=l_args[3].shape[3],
+                                              chunk=l_args[5], dtype=str(l_args[0].dtype)),
+               ms=cuda_ms(lambda: [ssd_kernel.launch_phase(l_ctx, ph) for ph in ssd_kernel.PHASES],
+                          iters=100),
+               call_ms=cuda_ms(lambda: ssd_kernel.ssd_scan_cuda(*l_args), iters=100),
+               plain_ms=cuda_ms(lambda: ssd_scan_ref(*l_args)), library_ms=None,
+               bound_ms=lb_ms, bound_by=lb_by)
+    launch_times["ssd_scan"].append(row)
+    log(f"time ssd_scan launcher hymba-1.5b x{row['shape']['x']}: kernels {row['ms']:.4f} ms "
+        f"(a whole call {row['call_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {lb_ms:.4f} "
+        f"({lb_by}) on {card}")
+
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89",
         launches=(main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches
-                  + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]),
+                  + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]
+                  + launch["launches"]["topk_sim"]),
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -2371,12 +3015,14 @@ def main() -> int:
         launches_by_path={"serve": main_launches, "pool": pool_launches["topk_sim"],
                           "pipeline": pipe_launches, "loop": loop_launches,
                           "learn": later_paths["learn"]["launches"],
-                          "ivf": later_paths["ivf"]["launches"]},
+                          "ivf": later_paths["ivf"]["launches"],
+                          "launch": launch["launches"]["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
-                           "ivf": later_paths["ivf"]["routes"]},
-        rescored={"serve": serve_rescored},
+                           "ivf": later_paths["ivf"]["routes"],
+                           "launch": launch["topk_routes"]},
+        rescored={"serve": serve_rescored}, launch_shapes=launch_times["topk_sim"],
         crossover=crossover, host_vs_device=host_split,
     ), dict(
         name="topk_sim (select route)", route="cuda",
@@ -2392,23 +3038,28 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:112",
-        launches=pool_launches["flash_attention"],
+        launches=pool_launches["flash_attention"] + launch["launches"]["flash_attention"],
+        launches_by_path={"pool": pool_launches["flash_attention"],
+                          "launch": launch["launches"]["flash_attention"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
                    window=kw["window"], dtype=str(q.dtype)),
         library="scaled_dot_product_attention with the same boolean mask, kv repeated",
-        ms_by_route=f_ms_by_route, launches_by_route=pool_flash_routes, checks=flash_checks,
+        ms_by_route=f_ms_by_route,
+        launches_by_route={"pool": pool_flash_routes, "launch": launch["flash_routes"]},
+        launch_shapes=launch_times["flash_attention"], checks=flash_checks,
     ), dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:102",
-        launches=pool_launches["ssd_scan"],
+        launches=pool_launches["ssd_scan"] + launch["launches"]["ssd_scan"],
+        launches_by_path={"pool": pool_launches["ssd_scan"], "launch": launch["launches"]["ssd_scan"]},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
                    chunk=ssd_args[5], dtype=str(x0.dtype)),
         tile=ssd_kernel.TILE, call_ms=s_call_ms, device_ms=s_device_ms,
-        device_ms_by_phase=s_phase_ms,
+        device_ms_by_phase=s_phase_ms, launch_shapes=launch_times["ssd_scan"],
         checks=ssd_checks,
     )]
     summary = dict(card=card, seconds=time.perf_counter() - t_start, runs=runs,
@@ -2420,7 +3071,7 @@ def main() -> int:
                                  rerank_candidates_near_tie_rows=n_cand_rule,
                                  seconds=pipe_s),
                    loop=loop, learn=later_paths["learn"]["summary"],
-                   ivf=later_paths["ivf"]["summary"])
+                   ivf=later_paths["ivf"]["summary"], launch=launch)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -10,6 +10,8 @@ there.
 
 Constructing one on a CUDA device builds the kernel library (nvcc, once
 per source hash), so the first served batch never pays for the compile.
+CUDA still loads a route's kernels at the route's first launch; `warm`
+makes those launches before serving.
 
 No candidate-mask support: the kernel scores every table row by design.
 The manager's exact fallback covers masked batches.
@@ -21,6 +23,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.common.bucketing import expected_buckets
 from repro_torch.common.device import resolve_device
 from repro_torch.kernels.topk_sim import kernel as topk_sim_kernel
 from repro_torch.kernels.topk_sim.ops import topk_sim
@@ -61,3 +64,19 @@ class FusedBackend:
         q = torch.from_numpy(np.ascontiguousarray(queries, np.float32)).to(self.device)
         scores, idx = topk_sim(q, self._table_t, k)
         return scores.cpu().numpy(), idx.cpu().numpy()
+
+    def warm(self, batch_size: int, ks) -> None:
+        """On the card, launch the kernel once at each padded block that a
+        `route_batch` of 1 to `batch_size` queries gives (its power-of-two
+        buckets) for each k in `ks`, with table rows as the queries, and wait
+        for the launches. CUDA loads a route's kernels at that route's first
+        launch, so this puts the loads before serving. On the CPU it does
+        nothing."""
+        if self.device.type != "cuda":
+            return
+        ks = sorted({min(int(k), self.n_tools) for k in ks})
+        for n_q in expected_buckets(range(1, max(int(batch_size), 1) + 1)):
+            q = self._table_t[torch.arange(n_q, device=self.device) % self.n_tools]
+            for k in ks:
+                topk_sim(q, self._table_t, k)
+        torch.cuda.synchronize(self.device)

@@ -281,6 +281,17 @@ class ToolIndexManager:
             bus.publish("rebuild_finish", plane="index", version=version,
                         backend=self.backend_kind, build_ms=build_ms)
 
+    def warm(self, batch_size: int, ks) -> None:
+        """The live backend's `warm(batch_size, ks)`, where it has one (the
+        fused backend: each route's first launch on the card, before
+        serving). The other backends load nothing lazily; nothing is counted
+        in `stats`."""
+        with self._lock:
+            backend = self._backend
+        warm = getattr(backend, "warm", None)
+        if warm is not None:
+            warm(batch_size, ks)
+
     # ----------------------------------------------------------------- serve
     def topk(
         self,

@@ -8,6 +8,13 @@ library is not built yet, loads it and sets its argument types; loads of
 different libraries from different threads build in parallel. Nothing here
 runs at import: the CPU tests import the kernel modules on machines with no
 nvcc and no card.
+
+Each `CudaLibrary` counts what it does: `builds` (nvcc runs) and `loads`
+(0 or 1: the shared library is loaded once a process). `LIBRARIES` maps
+each library's name to its `CudaLibrary`, process-wide, so a check can
+read what the process has built and loaded without knowing the kernel
+modules (`chip_smoke.py`'s launch phase holds that nvcc did not run while
+the launcher served).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "CudaLibrary", "sm_count"]
+__all__ = ["BUILD_DIR", "CSRC", "LIBRARIES", "NVCC_FLAGS", "CudaLibrary", "sm_count"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -33,6 +40,7 @@ NVCC_FLAGS = (
 )
 
 _sm_count: Dict[int, int] = {}  # device index -> SMs, for Hopper devices only
+LIBRARIES: Dict[str, "CudaLibrary"] = {}  # name -> the process's one CudaLibrary of it
 
 
 def _nvcc() -> str:
@@ -69,10 +77,13 @@ class CudaLibrary:
     """
 
     def __init__(self, name: str, bind: Callable[[ctypes.CDLL], None]):
+        LIBRARIES[name] = self
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.info: dict = {}  # path, seconds, cached, ptxas log of the build
         self.lib: Optional[ctypes.CDLL] = None
+        self.builds = 0  # nvcc runs in this process
+        self.loads = 0  # times the shared library was loaded: 0 or 1
         self._bind = bind
         self._lock = threading.Lock()
 
@@ -90,6 +101,7 @@ class CudaLibrary:
             if not cached:
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                self.builds += 1
                 proc = subprocess.run(
                     [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -107,6 +119,7 @@ class CudaLibrary:
             self.info.update(path=str(out), seconds=time.perf_counter() - t0,
                              cached=cached, log=log)
             self.lib = lib
+            self.loads += 1
             return lib
 
     def check(self, rc: int, what: str) -> None:

@@ -33,13 +33,21 @@ so a run can show that its main path went through the kernels, and through
 which; the wgmma route also adds its rescored (query, row) pairs to a
 counter on the card (`rescored()`). A launch the runtime refuses, a tensor
 map that fails to encode, or a cluster that cannot be resident, raises.
+
+What the process has compiled and loaded for this kernel is the live
+counterpart of the reference's jit cache: the library (built and loaded
+once) and each route's kernels, which CUDA loads lazily at the route's
+first launch. `launched_routes` holds the routes launched so far, and
+`PROBE._cache_size()` counts the library plus those routes; `repro_torch.obs.profile`
+reads it through `router.gateway.hot_path_jits()`. `cost(n_q, n_t, d, k)`
+is the call's analytic work, FLOPs and bytes, from its shapes alone.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 
@@ -50,6 +58,7 @@ from repro_torch.kernels.nvcc import CudaLibrary, sm_count
 __all__ = [
     "CLUSTER_MAX_T",
     "LIBRARY",
+    "PROBE",
     "ROUTES",
     "WGMMA_MAX_K",
     "WGMMA_MAX_QK",
@@ -59,6 +68,8 @@ __all__ = [
     "can_take",
     "cluster_qb",
     "cluster_stages",
+    "cost",
+    "launched_routes",
     "launches",
     "launches_by_route",
     "margin_coefs",
@@ -115,6 +126,7 @@ ROUTES = ("cluster", "split", "wgmma", "select")
 
 launches = 0  # kernel launches since the last reset (1 a call on "cluster", 2 on the others)
 launches_by_route = dict.fromkeys(ROUTES, 0)  # the same launches, by route
+launched_routes: Set[str] = set()  # routes launched at least once in this process; never reset
 _cluster_size: Dict[tuple, int] = {}  # (device, qb, d, k, stages) -> 16 or 8
 # device index -> uint64 counter on the card: (query, row) pairs the wgmma
 # route rescored in float32
@@ -156,6 +168,38 @@ def build() -> Path:
     """Compile (once per source hash) and load the kernel library."""
     LIBRARY.load()
     return Path(build_info["path"])
+
+
+def cost(n_q: int, n_t: int, d: int, k: int) -> Dict[str, float]:
+    """The work of one call, from its shapes: {"flops": 2QTD, the products as
+    multiply-adds; "bytes_accessed": each input read once (float32 queries
+    and table) and each output written once (float32 scores, int64
+    indices)}."""
+    return {"flops": float(2 * n_q * n_t * d),
+            "bytes_accessed": float(4 * (n_q * d + n_t * d) + n_q * k * (4 + 8))}
+
+
+class _Probe:
+    """This kernel as `router.gateway.hot_path_jits()` lists it: what the
+    process has compiled and loaded, its analytic cost and its route, read
+    without building, loading or launching anything."""
+
+    cost = staticmethod(cost)
+
+    @staticmethod
+    def _cache_size() -> int:
+        """The library loaded (0 or 1) plus the routes launched at least once."""
+        return LIBRARY.loads + len(launched_routes)
+
+    @staticmethod
+    def route(n_q: int, n_t: int, d: int, k: int) -> str:
+        """The route `topk_route` gives these shapes on 16-byte aligned
+        tensors, as the allocator returns them."""
+        probe = torch.empty((1, d))
+        return topk_route(n_q, n_t, d, k, probe, probe)
+
+
+PROBE = _Probe()
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -383,6 +427,7 @@ def topk_sim_cuda(
         LIBRARY.check(rc, "topk_sim_cluster")
         launches += 1
         launches_by_route["cluster"] += 1
+        launched_routes.add("cluster")
         return scores, idx
     if route == "select":
         sims = torch.empty((n_q, n_t), dtype=torch.float32, device=dev)
@@ -402,6 +447,7 @@ def topk_sim_cuda(
         LIBRARY.check(rc, "topk_sim_select_topk")
         launches += 1
         launches_by_route["select"] += 1
+        launched_routes.add("select")
         return scores, idx
     if route == "wgmma":
         counter = _rescored.get(dev.index)
@@ -433,4 +479,5 @@ def topk_sim_cuda(
     LIBRARY.check(rc, "topk_sim_merge")
     launches += 1
     launches_by_route[route] += 1
+    launched_routes.add(route)
     return scores, idx

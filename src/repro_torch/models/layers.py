@@ -12,7 +12,7 @@ plain version, `kernels/flash_attention/ref.py::attention_mask`);
 single-token decode (`attn_decode`) keeps the plain `gqa_attention` over
 its ring-buffer mask, as the JAX decode runs outside any Pallas kernel.
 `moe_block` and `cross_attn_block` are not ported yet (ROADMAP.md queue 1,
-item 11).
+item 8).
 """
 from __future__ import annotations
 

@@ -5,7 +5,7 @@ families. Parameters keep the JAX package's tree: one dict per kind, each
 leaf stacked over layers ([L, ...]), so `repro_torch.convert` carries a JAX
 tree across as it is. A Python loop over layers replaces `lax.scan`.
 Every entry point raises `NotImplementedError` for moe, vlm and audio
-configs, whose layers are not ported yet (ROADMAP.md queue 1, item 11),
+configs, whose layers are not ported yet (ROADMAP.md queue 1, item 8),
 and `loss_fn` waits for the training slice.
 
 Program surface:
@@ -45,7 +45,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: arch_type {cfg.arch_type!r} (MoE, cross-attention and "
             f"codebook layers) is not ported to repro_torch yet; see ROADMAP.md "
-            f"queue 1, item 11"
+            f"queue 1, item 8"
         )
 
 

@@ -1,7 +1,7 @@
 """Telemetry plane: metrics, route tracing, events, quality, health.
 
-Counterpart of `repro.obs`, for the modules ported so far, with the same
-instruments and event kinds (catalog below):
+Counterpart of `repro.obs`, module for module, with the same instruments
+and event kinds (catalog below):
 
 * `repro_torch.obs.metrics` — process-wide `MetricsRegistry` of counters,
   gauges and preallocated log-spaced-bucket histograms (O(1) record,
@@ -19,14 +19,29 @@ instruments and event kinds (catalog below):
   periodic registry snapshots with windowed rates, deltas and quantiles.
 * `repro_torch.obs.health` — `HealthMonitor` JSON snapshot
   (ok/degraded/error) + `ObsServer` HTTP exposition (``/metrics``,
-  ``/health``, ``/events``, ``/traces``).
+  ``/health``, ``/events``, ``/slo``, ``/traces``, ``/dumps``,
+  ``/profile``), wired into `launch/serve.py` behind ``--metrics-port``.
+* `repro_torch.obs.slo` — declarative `SLO`s (`default_slos()`) evaluated
+  by `SLOEngine` with multi-window burn rates; transitions publish
+  ``slo_burn``/``slo_recovered``, `HealthMonitor` degrades while burning.
+* `repro_torch.obs.flightrec` — `FlightRecorder`: on a trigger event or a
+  fatal crash (`record_crash`) it freezes the telemetry state into one
+  atomic, debounced, retention-capped dump directory, in the reference's
+  format (`DUMP_FORMAT_VERSION`): dumps cross between the packages both
+  ways. `render_replay` renders one offline.
+* `repro_torch.obs.profile` — `JitProfiler` over
+  `repro_torch.router.gateway.hot_path_jits()` (for the port: the
+  `topk_sim` kernel library loaded plus the routes launched at least once;
+  the first collect baselines warmup), `stamp_router_costs` (the kernel's
+  analytic FLOPs/bytes and route at the served shapes), and the opt-in
+  `SamplingProfiler` over the cadence daemons (``--profile-daemons``).
+* `repro_torch.obs.report` — renders trace JSONL, follows ``/events``,
+  runs the ``--watch`` panel and replays dumps
+  (``python -m repro_torch.obs.report``).
 
-`repro_torch.obs.clock` is the timing module for `router/`, `index/` and
-`control/` (the `obs-discipline` lint rule enforces it), and
-`repro_torch.obs.summary` is the one percentile implementation. Not ported
-yet: the SLO engine, the flight recorder, the report and the profilers
-(`obs/{slo,flightrec,report,profile}.py`); `ObsServer` and
-`HealthMonitor` accept them duck-typed.
+`repro_torch.obs.clock` is the timing module for `router/`, `index/`,
+`control/` and `learn/` (the `obs-discipline` lint rule enforces it), and
+`repro_torch.obs.summary` is the one percentile implementation.
 
 Metric catalog (gateway + index layer)
 ======================================
@@ -75,6 +90,19 @@ quality_ndcg{k=} / quality_recall{k=} (gauge)
 quality_drift_score (gauge)
     RMS z-score of the query-mean EWMA vs the live table's population
     stats (the label-free drift signal).
+slo_burning{slo=} / slo_burn_rate{slo=} (gauge)
+    Per-SLO breach state (0/1) and worst long-window burn rate, updated
+    on every `SLOEngine.evaluate`.
+jit_compiles_total{fn=} (counter)
+    Post-warmup growth of a hot-path entry's `_cache_size()` (for the
+    port: `topk_sim`'s library loads and first route launches; fn names
+    from `hot_path_jits()`) — the live retrace signal behind the
+    ``jit_retrace_rate`` SLO.
+jit_cache_size{fn=} (gauge)
+    Absolute `_cache_size()` per hot-path entry (warmup included).
+flightrec_dumps_total / flightrec_suppressed_total (counter)
+    Black-box dumps written vs suppressed by the debounce window.
+
 Event catalog (kind / plane / required detail stamps)
 =====================================================
 
@@ -103,6 +131,11 @@ loop_recovered / control|learn — controller
     The next step succeeded (`last_loop_error` cleared).
 outcomes_dropping / serve — dropped
     A router's outcome ring overflowed for the first time.
+slo_burn / serve — slo, sli, burn (+threshold_ms, p99_ms, p99_exemplar)
+    An SLO entered breach: burn > factor over both windows of some pair
+    (``sli`` is the SLI kind — latency|ratio|rate).
+slo_recovered / serve — slo, sli
+    The SLO's next evaluation saw the breach gone.
 cache_invalidated / serve — table_version, stage_version, purged, reason
     `SemanticRouteCache` purged >=1 version-stamp-mismatched entries
     (eager path via `cache.watch(bus)`; lazy lookup purges count in
@@ -110,9 +143,21 @@ cache_invalidated / serve — table_version, stage_version, purged, reason
 quality_drift / serve — score, threshold, table_version
     The query-population EWMA left the live table's population stats
     (rising edge only; re-arms when the score falls back under).
+
+The flight recorder consumes (never publishes) bus events: its trigger
+set is exactly {slo_burn, quality_drift, loop_error, rollback, demotion}
+plus out-of-band crashes, and a dump only reads latched judgement state
+(`SLOEngine.burning`), so recording can never cause the transitions it
+records.
 """
 from repro_torch.obs import clock
 from repro_torch.obs.events import Event, EventBus
+from repro_torch.obs.flightrec import (
+    FlightRecorder,
+    list_dumps,
+    load_dump,
+    render_replay,
+)
 from repro_torch.obs.health import HealthMonitor, ObsServer
 from repro_torch.obs.metrics import (
     Counter,
@@ -122,7 +167,9 @@ from repro_torch.obs.metrics import (
     default_edges,
     get_registry,
 )
+from repro_torch.obs.profile import JitProfiler, SamplingProfiler, stamp_router_costs
 from repro_torch.obs.quality import QualityConfig, QualityMonitor, RollingWindows
+from repro_torch.obs.slo import SLO, BurnWindow, SLOEngine, default_slos
 from repro_torch.obs.summary import LatencyStats, percentile_stats, stats_from_histogram
 from repro_torch.obs.timeseries import HistWindow, TimeSeriesRing
 from repro_torch.obs.trace import RouteTrace, RouteTracer, TraceSampler
@@ -147,7 +194,18 @@ __all__ = [
     "TraceSampler",
     "HistWindow",
     "TimeSeriesRing",
+    "SLO",
+    "BurnWindow",
+    "SLOEngine",
+    "default_slos",
     "QualityConfig",
     "QualityMonitor",
     "RollingWindows",
+    "FlightRecorder",
+    "list_dumps",
+    "load_dump",
+    "render_replay",
+    "JitProfiler",
+    "SamplingProfiler",
+    "stamp_router_costs",
 ]

@@ -15,7 +15,7 @@ but that were previously write-only attributes someone had to know to poll:
 `status` folds those into one tri-state: ``"error"`` when any daemon loop
 is failing (`last_loop_error` set), ``"degraded"`` when serving is correct
 but not nominal (stale index serving the exact fallback, outcome events
-dropped, an SLO currently burning, where an engine is attached), ``"ok"``
+dropped, an SLO currently burning — see `repro_torch.obs.slo`), ``"ok"``
 otherwise. Clear-on-recovery is inherited from the controllers: the next
 successful step clears `last_loop_error` and the snapshot goes back to
 "ok" with no monitor-side state (SLO state clears when the engine's next
@@ -24,16 +24,18 @@ evaluation sees the burn gone).
 `ObsServer` exposes the snapshot over HTTP for scrapers and humans:
 ``/metrics`` (Prometheus text exposition from the registry), ``/health``
 (this snapshot as JSON; 503 on "error" so load-balancer checks fail over),
-``/events?since=N`` (bus tail) and ``/traces?since=N`` /
-``/traces?id=N`` (the tracer ring: how a p99 exemplar id resolves into
-its RouteTrace). It is a daemon-threaded stdlib server — zero deps, good
-for one scraper and a curl, not a public ingress.
+``/events?since=N`` (bus tail), ``/slo`` (the SLO engine's burn-rate
+snapshot), ``/traces?since=N`` / ``/traces?id=N`` (the tracer ring — how
+the report's ``--watch`` panel resolves a p99 exemplar id into its
+RouteTrace), ``/dumps`` (the flight recorder's retained black-box dumps:
+manifests + recorder counters, the live half of the report's ``replay``),
+and ``/profile`` (the JitProfiler's per-entry load counters, cache sizes,
+and stamped FLOPs/bytes, plus the sampling profiler's stacks when one is
+attached). It is a daemon-threaded stdlib server — zero deps, good for
+one scraper and a curl, not a public ingress.
 
 Counterpart of `repro/obs/health.py`, copied with only its imports
-changed. The SLO engine, flight recorder and profilers are not ported yet;
-the ``slo=``, ``recorder=``, ``profiler=`` and ``sampler=`` hooks keep the
-reference's duck-typed call sites (``/slo``, ``/dumps``, ``/profile``) for
-them.
+changed; the report is `repro_torch.obs.report`.
 """
 from __future__ import annotations
 
@@ -57,7 +59,7 @@ class HealthMonitor:
         indexes: Sequence = (),  # ToolIndexManagers
         stores: Sequence = (),  # OutcomeStores
         bus: Optional[EventBus] = None,
-        slo: Optional["SLOEngine"] = None,  # obs.slo (not ported yet)
+        slo: Optional["SLOEngine"] = None,  # repro_torch.obs.slo
     ):
         self.routers = list(routers)
         self.controllers = list(controllers)
@@ -134,11 +136,11 @@ class ObsServer:
         bus: Optional[EventBus] = None,
         host: str = "127.0.0.1",
         port: int = 0,  # 0 = ephemeral; read `.port` after construction
-        slo: Optional["SLOEngine"] = None,  # obs.slo (not ported yet)
+        slo: Optional["SLOEngine"] = None,  # repro_torch.obs.slo
         tracer: Optional["RouteTracer"] = None,  # repro_torch.obs.trace
-        recorder: Optional["FlightRecorder"] = None,  # obs.flightrec (not ported yet)
-        profiler: Optional["JitProfiler"] = None,  # obs.profile (not ported yet)
-        sampler: Optional["SamplingProfiler"] = None,  # obs.profile (not ported yet)
+        recorder: Optional["FlightRecorder"] = None,  # repro_torch.obs.flightrec
+        profiler: Optional["JitProfiler"] = None,  # repro_torch.obs.profile
+        sampler: Optional["SamplingProfiler"] = None,  # repro_torch.obs.profile
     ):
         self.monitor = monitor or HealthMonitor()
         self.registry = registry or get_registry()

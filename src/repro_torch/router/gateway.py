@@ -33,6 +33,12 @@ version stamps re-checked against the live pair), `tracer=` a
 index manager's rebuilds) and `quality=` a
 `repro_torch.obs.quality.QualityMonitor` fed the raw [Q, D] numpy query block
 for label-free drift.
+
+`hot_path_jits()` names what `route_batch` dispatches to, as the
+reference's does: there the jitted programs, here the `topk_sim` kernel's
+probe (its library and the routes launched so far; see
+`kernels/topk_sim/kernel.py`) beside the eager adapter and re-ranker,
+which compile nothing.
 """
 from __future__ import annotations
 
@@ -59,9 +65,35 @@ __all__ = [
     "OutcomeEvent",
     "SemanticRouter",
     "StageSet",
+    "hot_path_jits",
 ]
 
 PHASES = ("embed", "cache", "adapter", "score", "rerank", "assemble")
+
+
+def hot_path_jits() -> "OrderedDict[str, Callable]":
+    """What `route_batch` dispatches to, by name: the port's counterpart of
+    the reference's jitted entry points, read by `obs.profile.JitProfiler`.
+
+    The port compiles nothing with XLA. What it does build and load is the
+    `topk_sim` kernel library, and CUDA loads a route's kernels at the
+    route's first launch, so its entry is the kernel's probe, whose
+    `_cache_size()` is the library loaded (0 or 1) plus the routes launched
+    at least once: a load or a route that appears after warmup is the port's
+    production retrace. The adapter and the re-ranker are eager torch with
+    no compiled program and no such probe; the profiler lists them as
+    unsupported.
+    """
+    from repro_torch.core import adapter as adapter_lib
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+
+    return OrderedDict(
+        (
+            ("topk_sim", topk_kernel.PROBE),
+            ("adapter_apply", adapter_lib.adapter_apply),
+            ("rerank_topk_scored", reranker_lib.rerank_topk_scored),
+        )
+    )
 
 
 class _GatewayInstruments:

@@ -821,3 +821,76 @@ def test_stage_demotion_restores_exactly_on_the_card(cuda_device):
     assert w.guard.demotions and w.router.stage_set()[1].adapter_artifact == live.adapter_artifact
     assert _heldout(w) == good
     w.router.close()
+
+
+def test_launcher_profiler_counts_a_route_first_launch_once(cuda_device, monkeypatch):
+    """`repro_torch.launch.serve` on the card behind the fused backend: a
+    JitProfiler baselined before the run counts the library load (where the
+    run made it) and each route's first launch once (the launcher's warm-up
+    makes them, before its own profiler's baseline), and an identical second
+    run adds nothing. The record of launched routes starts empty here, so
+    the routes count whatever earlier tests launched."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import JitProfiler, MetricsRegistry
+
+    monkeypatch.setattr(topk_kernel, "launched_routes", set())
+    # 20 requests in batches of 16 and 4 over 20,000 tools: wgmma, then split
+    argv = ["--smoke", "--backend", "fused", "--n-tools", "40", "--n-queries", "120",
+            "--num-tools", "20000", "--requests", "20", "--route-batch", "16",
+            "--max-new-tokens", "2"]
+    prof = JitProfiler(registry=MetricsRegistry())
+    loads = topk_kernel.LIBRARY.loads
+    prof.collect()
+    launches = topk_kernel.launches
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.main(argv)
+    prof.collect()
+    # the warm-up: buckets 1-16 at k = 5 and at the re-ranker's 25
+    want = {topk_kernel.PROBE.route(n, 20000, 384, k) for n in (1, 2, 4, 8, 16) for k in (5, 25)}
+    assert want == {"wgmma", "split"} and topk_kernel.launched_routes == want
+    # two launches a call on both routes: ten warm-up calls, two batches
+    assert topk_kernel.launches - launches == 2 * (10 + 2)
+    first = prof.snapshot()["jits"]["topk_sim"]
+    assert first["compiles_total"] == topk_kernel.LIBRARY.loads - loads + len(want)
+    assert first["cache_size"] == topk_kernel.LIBRARY.loads + len(want)
+    with contextlib.redirect_stdout(io.StringIO()):
+        serve.main(argv)
+    prof.collect()
+    assert prof.snapshot()["jits"]["topk_sim"] == first
+    assert topk_kernel.launches - launches == 2 * 2 * (10 + 2)
+
+
+def test_launcher_in_a_fresh_process_counts_no_retrace(cuda_device, tmp_path):
+    """`python -m repro_torch.launch.serve` in a process of its own on the
+    card, behind the fused backend, with the ring ticking (--metrics-port 0)
+    and the flight recorder armed: no route has launched before the
+    launcher's warm-up, which comes before its profiler's baseline, so the
+    ring, judging the probe through serving, counts no retrace: health ok
+    and no dump. Serving lasts past two ring ticks after the first batch."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch import serve
+    from repro_torch.obs import list_dumps
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (src, os.environ.get("PYTHONPATH")) if p))
+    dumps = tmp_path / "dumps"
+    # 400 requests in 25 batches over 20,000 tools: wgmma at 16 queries
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--smoke", "--backend", "fused",
+         "--n-tools", "40", "--n-queries", "2400", "--num-tools", "20000", "--requests", "400",
+         "--route-batch", "16", "--max-new-tokens", "8", "--metrics-port", "0",
+         "--dump-dir", str(dumps)],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = serve.printed_results(proc.stdout)
+    assert got["serve_s"] >= 2.0, proc.stdout
+    assert got["health"] == "ok", proc.stdout
+    assert list_dumps(str(dumps)) == []

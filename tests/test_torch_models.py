@@ -191,5 +191,5 @@ def test_unported_families_raise(arch):
         lambda: M.decode_step(cfg, {}, {}, {"token": batch["tokens"][:, :1], "pos": 0}),
         lambda: ContinuousBatcher(cfg, {}, device=CPU),
     ):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 8"):
             call()
