@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path, model pool, offline OATS
-pipeline, online refinement loop, learning plane, IVF backend and serve
-launcher once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving path, model pool (every family),
+offline OATS pipeline, online refinement loop, learning plane, IVF backend
+and serve launcher once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -121,10 +121,11 @@ package `repro`. Phases, each of which fails the run by raising:
                index stats, cache line, plan, decisions, traces and dumps
                (burns of the 10 ms latency SLO apart: the CPU's batches
                over 100,000 tools take ~40 ms), health ok on the card; (b)
-               deploys a table S3's adapter transformed, trained on each
-               device's own generator, so its card results are held
-               against the card's table served on the CPU and its R@5 is
-               printed, not held; every kernel call on the route its route
+               deploys a table S3's adapter transformed, trained from one
+               seed's draws (a CPU generator) on each device: the two
+               tables within TRAINED_TABLE_ATOL and R@5 held as (a)'s;
+               run (c)'s stage decisions equal, their held-out NDCG@5
+               within DECISION_ATOL; every kernel call on the route its route
                function gives, one flash and one scan call a layer a
                request; the topk_sim probe counts the library plus every
                route launched so far, and a JitProfiler baselined after
@@ -133,6 +134,30 @@ package `repro`. Phases, each of which fails the run by raising:
                ms, the library loads and first launches, and route_batch
                at batch 16 over 100,000 tools with the full obs plane
                against a bare router, in turns;
+ 12. families — (run before 7) the pool's other families at full width
+               in bf16, seeded (FAMILIES): musicgen-medium whole (4
+               codebooks), dbrx-132b 4 of 40 layers, llama-3.2-vision-90b
+               10 of 100 (two groups of four self layers and a gated cross
+               layer over 1,600 image tokens, gates opened), arctic-480b 1
+               of 35 (MoE beside the dense residual): the first three
+               through `ContinuousBatcher` (16 routed requests of
+               1,100-2,048 prompt tokens, 16 new, 4 slots; flash once a
+               self layer a prefill and, causal=False, once a cross layer a
+               prefill and a tick, all on wgmma; topk_sim once a routed
+               batch on cluster; the MoE's share of assignments dropped for
+               capacity a prefill and a tick), then each family's
+               2,048-token prompt through `M.prefill` and greedy
+               `decode_step`s (8; arctic 4) held against a teacher-forced
+               `forward` at tests/test_torch_bf16.py's tolerance (MoE: with
+               the capacity at T, where nothing drops; at the config's
+               capacity printed), the flash kernel against its plain
+               version at a captured self-attention input and at the VLM's
+               cross-attention inputs of the prefill and of a decode step,
+               timed with plain, SDPA and the bound; then the launcher in
+               process (musicgen-medium at full width, dbrx-132b and
+               llama-3.2-vision-90b at --smoke) on the card and the CPU,
+               printing the same results; each family's params freed
+               before the next;
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -157,6 +182,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -182,6 +208,7 @@ DEVICE = "cuda"
 FLASH_ATOL = {"float32": 2e-5, "bfloat16": 3e-2}
 SSD_ATOL = 1e-3
 BF16_ULP = 2**-7
+FLASH_BF16_RTOL = 1e-2  # ||kernel - plain|| / ||plain|| in bf16: one rounding ~3e-3
 # the model pool
 POOL_ARCH = "hymba-1.5b"
 POOL_REQUESTS, POOL_SLOTS, POOL_NEW_TOKENS = 16, 4, 16
@@ -236,9 +263,9 @@ IVF_SWAP_BATCHES = 8  # index-served batches before and after each swap
 # the serve launcher (phase 11), `repro_torch.launch.serve.main` in process
 # as a user runs it: (a) full-width hymba-1.5b behind the fused router over
 # 100,000 tools with the whole obs plane; (b) qwen2.5-3b, the launcher's
-# default, with S3's fit (adapter and re-ranker trained on the card; only
-# the refined table is deployed). Each again with --smoke --device cpu: the
-# router does not depend on --smoke
+# default, with S3's fit (adapter and re-ranker trained on each device from
+# one seed's draws; the adapted table deployed). Each again with --smoke
+# --device cpu: the router does not depend on --smoke
 LAUNCH_RUNS = {
     "a": ["--arch", "hymba-1.5b", "--backend", "fused", "--num-tools", "100000",
           "--requests", "16", "--route-batch", "16", "--max-new-tokens", "8", "--route-cache",
@@ -260,10 +287,49 @@ LAUNCH_FRESH_TIMEOUT_S = 240
 LAUNCH_FRESH_MIN_SERVE_S = 2.0  # two ring ticks (1 s) after the first served batch
 LATENCY_SLO = "route_p99_budget"  # default_slos()' 10 ms batch budget
 LAUNCH_OBS_ROUNDS, LAUNCH_OBS_BATCHES = 10, 200  # the obs plane, its parts, a bare router
+TRAINED_TABLE_ATOL = 1e-4  # run (b): S3's adapter, one seed, card against CPU
+DECISION_ATOL = 2e-3  # run (c): held-out NDCG@5, printed to 3 places: 1e-3 + rounding
+# the pool's other families (phase 12), full width, bf16, seeded; depth cut
+# only where one card's 80 GB forces it: arch -> (layers kept, batcher leg
+# and launcher run, decode steps of the direct leg)
+FAMILIES = {
+    "musicgen-medium": (None, True, 8),  # whole: 48 layers, ~1.8 B params
+    "dbrx-132b": (4, True, 8),  # 4 of 40 layers, ~28 GB
+    "llama-3.2-vision-90b": (10, True, 8),  # two groups of 4 self + 1 cross layer
+    "arctic-480b": (1, False, 4),  # 1 of 35 layers (MoE + dense residual), ~27 GB
+}
+FAMILY_REQUESTS = 16  # the batcher leg: 1,100-2,048 prompt tokens, 16 new, 4 slots
+FAMILY_LAUNCH = ["--backend", "fused", "--requests", "8", "--route-batch", "8",
+                 "--max-new-tokens", "4", "--n-queries", "400"]
+FAMILY_LAUNCH_CARD = {"musicgen-medium": (), "dbrx-132b": ("--smoke",),
+                      "llama-3.2-vision-90b": ("--smoke",)}  # full dbrx / llama: 264 / 180 GB
+BF16_LOGIT_ATOL = 3e-2  # tests/test_torch_bf16.py: 3e-2 + two bf16 ulps of the row's max
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def flash_error(got, ref) -> dict:
+    """A flash output against its plain version: max|d|, max|plain|, the
+    limit on max|d| and ||d|| / ||plain||. The limit is FLASH_ATOL of the
+    dtype; in bf16 also two bf16 ulps of max|plain| (2**-6 of its power of
+    two), since both versions round to bf16 and differ by an element's ulp.
+    A few per cent off throughout (a tail tile dropped or left unmasked)
+    fails that limit, or the bf16 norm limit FLASH_BF16_RTOL, at any scale."""
+    dtype = str(got.dtype).replace("torch.", "")
+    d, r = got.float() - ref.float(), ref.float()
+    max_ref = float(r.abs().max())
+    limit = FLASH_ATOL[dtype]
+    if dtype == "bfloat16" and max_ref > 0.0:
+        limit = min(limit, 2 * BF16_ULP * 2.0 ** math.floor(math.log2(max_ref)))
+    return dict(max_abs_err=float(d.abs().max()), max_abs_ref=max_ref, atol=limit,
+                rel_norm=float(d.norm() / r.norm()) if max_ref > 0.0 else 0.0)
+
+
+def flash_within(e: dict, dtype: str) -> bool:
+    return e["max_abs_err"] <= e["atol"] and (dtype != "bfloat16"
+                                               or e["rel_norm"] <= FLASH_BF16_RTOL)
 
 
 def same_ranking(idx_a, sc_a, idx_b, sc_b, tie: float) -> bool:
@@ -1340,7 +1406,16 @@ def run_launcher(argv, on_card):
     return run
 
 
-def launch_parity(name, card_run, cpu_run, n_requests, same_table):
+def trains_adapter(argv) -> bool:
+    """True when the launcher's `--stage` (default oats-s1) trains S3's
+    adapter, which transforms the deployed table."""
+    from repro_torch.core.pipeline import STAGE_PRESETS
+
+    stage = argv[argv.index("--stage") + 1] if "--stage" in argv else "oats-s1"
+    return "adapter" in STAGE_PRESETS[stage]
+
+
+def launch_parity(name, card_run, cpu_run, n_requests):
     """Card against CPU: the same versions and tools a request, or a
     ranking reordered inside near-ties (< NEAR_TIE, counted); R@5 equal but
     for such rows; the same outcome count, index stats, cache line, plan,
@@ -1348,29 +1423,20 @@ def launch_parity(name, card_run, cpu_run, n_requests, same_table):
     on the card, with no burn of the latency SLO (LATENCY_SLO), and on the
     CPU ok or degraded by burns of that SLO alone, whose 10 ms budget the
     CPU's batches over 100,000 tools do not meet (the SLO judges the
-    device's speed; its dumps are counted apart). Where the two runs deploy different tables (`same_table`
-    False: S3's adapter trains on each device's own generator and
-    transforms the table), the card's results are held against the same
-    queries served on the CPU over the card run's own table, and R@5 is
-    not held. Returns (rows that needed the near-tie rule, the two
-    deployed tables' max abs difference)."""
+    device's speed; its dumps are counted apart). Where the deployed table
+    was trained (S3's adapter transforms it; one seed draws the same model
+    on both devices), the two tables must agree within TRAINED_TABLE_ATOL.
+    Returns (rows that needed the near-tie rule, the two deployed tables'
+    max abs difference)."""
     import numpy as np
 
-    from repro_torch.router.gateway import SemanticRouter
-
     card_res = [r for _, _, res in card_run["rec"]["batches"] for r in res]
-    card_router = card_run["rec"]["batches"][0][0]
-    table_diff = float(np.abs(card_router.db.embeddings
+    cpu_res = [r for _, _, res in cpu_run["rec"]["batches"] for r in res]
+    table_diff = float(np.abs(card_run["rec"]["batches"][0][0].db.embeddings
                               - cpu_run["rec"]["batches"][0][0].db.embeddings).max())
-    if same_table:
-        cpu_res = [r for _, _, res in cpu_run["rec"]["batches"] for r in res]
-    else:
-        replay = SemanticRouter(card_router.db, embed_fn=card_router.embed_fn,
-                                embed_batch_fn=card_router.embed_batch_fn, k=card_router.k,
-                                backend="fused", metrics=False, device="cpu")
-        cpu_res = [r for _, queries, _ in card_run["rec"]["batches"]
-                   for r in replay.route_batch(queries)]
-        replay.close()
+    if trains_adapter(card_run["argv"]) and not table_diff <= TRAINED_TABLE_ATOL:
+        raise AssertionError(f"launch ({name}): the card's trained table is {table_diff:.3g} "
+                             f"from the CPU's (one seed; atol {TRAINED_TABLE_ATOL})")
     n_rule = 0
     for x, y in zip(card_res, cpu_res, strict=True):
         if (x.table_version, x.stage_version) != (y.table_version, y.stage_version):
@@ -1380,7 +1446,7 @@ def launch_parity(name, card_run, cpu_run, n_requests, same_table):
                 raise AssertionError(f"launch ({name}): card {x.tools} vs CPU {y.tools}")
             n_rule += 1
     a, b = card_run["printed"], cpu_run["printed"]
-    if same_table and abs(a["r5"] - b["r5"]) * n_requests > n_rule + 1e-9:
+    if abs(a["r5"] - b["r5"]) * n_requests > n_rule + 1e-9:
         raise AssertionError(f"launch ({name}): R@5 {a['r5']} on the card, {b['r5']} on the CPU")
     same = ("outcomes", "index", "cache", "plan", "decisions", "live stages", "traces", "dumps")
     for key in same:
@@ -1394,6 +1460,23 @@ def launch_parity(name, card_run, cpu_run, n_requests, same_table):
         raise AssertionError(f"launch ({name}): health {a['health']} / {b['health']}, latency "
                              f"SLO burns {a['latency_burns']} / {b['latency_burns']}")
     return n_rule, table_diff
+
+
+def same_decisions(a, b, atol: float) -> bool:
+    """Two runs' printed stage-decision lines are equal word for word, but
+    for the numbers in them (held-out NDCG@5), which may differ by `atol`."""
+    import re
+
+    number = re.compile(r"-?\d+\.\d+")
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if number.sub("#", x) != number.sub("#", y):
+            return False
+        if any(abs(float(p) - float(q)) > atol
+               for p, q in zip(number.findall(x), number.findall(y))):
+            return False
+    return True
 
 
 def launch_phase(dev, card, ever_launched, first_launch_ms):
@@ -1410,7 +1493,6 @@ def launch_phase(dev, card, ever_launched, first_launch_ms):
     from repro_torch.kernels.nvcc import LIBRARIES
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
-    from repro_torch.core.pipeline import STAGE_PRESETS
     from repro_torch.launch import serve
     from repro_torch.obs import list_dumps
 
@@ -1483,13 +1565,12 @@ def launch_phase(dev, card, ever_launched, first_launch_ms):
                     out["obs_cost"] = launch_obs_cost(dev, card, run)
             card_run, cpu_run = runs[(name, "card")], runs[(name, "cpu")]
             n_req = sum(len(b[2]) for b in card_run["rec"]["batches"])
-            stage = argv[argv.index("--stage") + 1] if "--stage" in argv else "oats-s1"
-            same_table = "adapter" not in STAGE_PRESETS[stage]
-            n_rule, table_diff = launch_parity(name, card_run, cpu_run, n_req, same_table)
+            trained = trains_adapter(argv)
+            n_rule, table_diff = launch_parity(name, card_run, cpu_run, n_req)
             p = card_run["printed"]
             summary = dict(
                 argv=card_run["argv"], seconds=card_run["seconds"], cpu_seconds=cpu_run["seconds"],
-                printed=dict(p), near_tie_rows=n_rule, same_table=same_table,
+                printed=dict(p), near_tie_rows=n_rule, trained_table=trained,
                 table_max_abs_diff=table_diff, cpu_r5=cpu_run["printed"]["r5"],
                 launches=card_run["launches"], topk_routes=card_run["topk_routes"],
                 topk_calls=[c["shape"] for c in card_run["rec"]["topk"]],
@@ -1511,10 +1592,9 @@ def launch_phase(dev, card, ever_launched, first_launch_ms):
                 f"({p['dumps']}) equal to the CPU run's (rows reordered inside near-ties: "
                 f"{n_rule}; the CPU run's latency SLO burns "
                 f"{cpu_run['printed']['latency_burns']}, health {cpu_run['printed']['health']}"
-                + ("" if same_table else
-                   f"; results held against the card's own table served on the CPU: S3's "
-                   f"adapter trained on each device's generator, tables {table_diff:.3g} "
-                   f"apart, R@5 on the CPU run {cpu_run['printed']['r5']:.3f}, not held")
+                + (f"; S3's adapter trained from one seed on each device, tables "
+                   f"{table_diff:.3g} apart (atol {TRAINED_TABLE_ATOL}), R@5 on the CPU run "
+                   f"{cpu_run['printed']['r5']:.3f}" if trained else "")
                 + f"); health {p['health']} on {card}")
         out["fresh"] = launch_fresh(dev, card, tmp)
     if sum(lib.builds for lib in LIBRARIES.values()) != builds:
@@ -1538,8 +1618,8 @@ def launch_fresh(dev, card, tmp):
     enough for the ring to judge the probe after the first batch. The two
     print the same R@5, outcome count, index stats, route cache line, plan
     and trace count, and write the same dumps; the re-ranker trains on both
-    (its init and dropout come from each device's generator, so the
-    decisions are printed, not held)."""
+    from the same draws (a CPU generator), so each stage's decision is the
+    same and its held-out NDCG@5 within DECISION_ATOL."""
     import os
 
     from repro_torch.launch import serve
@@ -1589,12 +1669,17 @@ def launch_fresh(dev, card, tmp):
                for w, r in runs.items()}
     if any(len(d) != 1 or "suppressed" in d[0] for d in trained.values()):
         raise AssertionError(f"launch (c): the re-ranker did not train: {trained}")
+    # one seed draws the same re-ranker on both devices: the same decisions,
+    # held-out NDCG@5 equal but for float32 sums (the lines print 3 places)
+    if not same_decisions(a["decisions"], b["decisions"], DECISION_ATOL):
+        raise AssertionError(f"launch (c): decisions {a['decisions']} on the card, "
+                             f"{b['decisions']} on the CPU")
     log(f"launch (c) in fresh processes: {runs['card']['seconds']:.1f} s; card serving "
         f"{a['serve_s']} s, health {a['health']}, no dump; router R@5 {a['r5']:.3f}, "
         f"selection p50/p99 {a['selection_ms']} ms a query over 30 batches; "
-        + a["cache"] + f"; {a['plan']}; decisions card {a['decisions']} CPU {b['decisions']}; "
-        f"results, cache, plan, traces ({a.get('traces')}) and dumps equal to the CPU run's "
-        f"on {card}")
+        + a["cache"] + f"; {a['plan']}; decisions card {a['decisions']} CPU {b['decisions']} "
+        f"(equal, NDCG@5 within {DECISION_ATOL}); results, cache, plan, traces "
+        f"({a.get('traces')}) and dumps equal to the CPU run's on {card}")
     return dict(argv=list(LAUNCH_FRESH), seconds=runs["card"]["seconds"], printed=a,
                 cpu_decisions=b["decisions"])
 
@@ -1736,6 +1821,487 @@ def launch_obs_cost(dev, card, run):
         f"during the turns, one tick (snapshot, profiler.collect, slo_engine.evaluate) "
         f"{res['tick_ms_p50']:.4f} ms p50 on {card}")
     return res
+
+
+def bf16_logits_close(got, ref):
+    """(max |d|, within tolerance): tests/test_torch_bf16.py's bf16 logit
+    tolerance, BF16_LOGIT_ATOL plus two bf16 ulps of the row's largest |logit|
+    (a rounding upstream of the head moves every logit of a row)."""
+    import torch
+
+    a, b = ref.float(), got.float()
+    row_ulp = torch.exp2(torch.floor(torch.log2(a.abs().amax(-1, keepdim=True))) - 7)
+    d = (a - b).abs()
+    return float(d.max()), bool((d <= BF16_LOGIT_ATOL + 2 * row_ulp).all())
+
+
+@contextlib.contextmanager
+def recorded_model_calls(flash_calls, moe_inputs):
+    """Inside the block every flash_attention call of the model's layers
+    appends ((q, k, v), kwargs) to `flash_calls` and every moe_block call
+    (p, x) to `moe_inputs` (references, no copies: neither is written
+    after the call)."""
+    from repro_torch.models import layers
+
+    flash, moe = layers.flash_attention, layers.moe_block
+
+    def flash_wrapper(q, k, v, **kw):
+        flash_calls.append(((q, k, v), kw))
+        return flash(q, k, v, **kw)
+
+    def moe_wrapper(p, x, cfg):
+        moe_inputs.append((p, x, cfg))
+        return moe(p, x, cfg)
+
+    layers.flash_attention, layers.moe_block = flash_wrapper, moe_wrapper
+    try:
+        yield
+    finally:
+        layers.flash_attention, layers.moe_block = flash, moe
+
+
+def moe_drop_share(moe_inputs):
+    """(assignments dropped for capacity, assignments) over the recorded
+    moe_block calls, recomputed with the block's own router."""
+    from repro_torch.models import layers
+
+    kept = total = 0
+    for p, x, cfg in moe_inputs:
+        keep = layers.moe_route(p, x.reshape(-1, x.shape[-1]), cfg)[4]
+        kept += int(keep.sum())
+        total += keep.numel()
+    moe_inputs.clear()
+    return total - kept, total
+
+
+def families_phase(dev, card, gen, check_flash, make_router, db_native, bench, agree):
+    """Phase 12: musicgen-medium, dbrx-132b, llama-3.2-vision-90b and
+    arctic-480b at full width in bf16 (depth cut as FAMILIES says): the
+    batcher leg (routed admission), a 2,048-token prompt through
+    `M.prefill` and greedy `decode_step`s held against a teacher-forced
+    `forward`, the flash kernel at captured inputs against its plain
+    version, the launcher in process on the card and the CPU, and the
+    cross-attention's causal=False kernel timed. Returns the summary;
+    raises on any failed check."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.topk_sim import kernel as topk_kernel
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, model as M
+    from repro_torch.router.scheduler import ContinuousBatcher, Request
+
+    def reset_counts():
+        for mod in (flash_kernel, ssd_kernel, topk_kernel):
+            mod.launches = 0
+        flash_kernel.launches_by_route = dict.fromkeys(flash_kernel.ROUTES, 0)
+        topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+
+    def counts():
+        return dict(flash=flash_kernel.launches, ssd=ssd_kernel.launches,
+                    topk=topk_kernel.launches,
+                    flash_routes=dict(flash_kernel.launches_by_route),
+                    topk_routes=dict(topk_kernel.launches_by_route))
+
+    # launches of the full-width legs (batcher, direct) and, apart, of the
+    # launcher's card runs (two of them at --smoke: float32, the fma route)
+    out = dict(families={}, cross_shapes=[], **{path: dict(
+        launches=dict(flash=0, topk=0), flash_routes=dict.fromkeys(flash_kernel.ROUTES, 0),
+        topk_routes=dict.fromkeys(topk_kernel.ROUTES, 0)) for path in ("pool", "launch")})
+
+    def add(path, c):
+        for key in ("flash", "topk"):
+            out[path]["launches"][key] += c[key]
+        for key in ("flash_routes", "topk_routes"):
+            for r, n in c[key].items():
+                out[path][key][r] += n
+
+    for arch, (n_layers, batcher_leg, n_decode) in FAMILIES.items():
+        t_family = time.perf_counter()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=n_layers) if n_layers else full
+        n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
+        n_self = cfg.n_layers - n_cross
+        rec = dict(arch=arch, layers=cfg.n_layers, of_layers=full.n_layers, n_self=n_self,
+                   n_cross=n_cross, params=cfg.param_count(), dtype=cfg.dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = M.init(cfg, gen, device=dev)
+        # unit-scale attention logits (as the hymba pool), the VLM's gates open
+        params = M.open_cross_gates(cfg, M.attention_at_d_model_fan_in(cfg, params), seed=1)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        log(f"families: {arch} {cfg.n_layers} of {full.n_layers} layers"
+            + (f" ({n_self} self, {n_cross} cross, {cfg.n_image_tokens} image tokens)"
+               if n_cross else "") + f", d_model {cfg.d_model}, {cfg.dtype}, "
+            f"{cfg.param_count() / 1e9:.3f} B params (the cut: "
+            + ("none" if not n_layers else f"depth {n_layers} of {full.n_layers}, one card's "
+               f"80 GB; full {full.param_count() / 1e9:.1f} B") + f"), initialised from a "
+            f"seeded generator on the card in {rec['init_s']:.1f} s; wq, wk, wv at a d_model "
+            f"fan-in" + ("; gates opened to seeded values" if n_cross else ""))
+        img_gen = torch.Generator(device=dev).manual_seed(7)
+
+        def image(b):
+            return torch.randn((b, cfg.n_image_tokens, cfg.d_model), generator=img_gen,
+                               device=dev).to(getattr(torch, cfg.dtype))
+
+        # ---- (a) the batcher: routed admission, 4 slots, 16 requests
+        if batcher_leg:
+            pool_router = make_router(db_native, "fused", None)
+            dense = make_router(db_native, "dense", None)
+            routed = []
+            route_batch = pool_router.route_batch
+
+            def counted_route(queries, *args, **kwargs):
+                routed.append(len(queries))
+                return route_batch(queries, *args, **kwargs)
+
+            pool_router.route_batch = counted_route
+            max_len = POOL_PROMPT_LENS[1] + 2 * POOL_NEW_TOKENS
+            batcher = ContinuousBatcher(cfg, params, n_slots=POOL_SLOTS, max_len=max_len,
+                                        router=pool_router, device=dev)
+            flash_calls, moe_inputs = [], []
+            prefill_ms, decode_ms, drops = [], [], {"prefill": [], "tick": []}
+            tick_flash = []
+
+            def timed(fn, into, kind):
+                def wrapper(*args):
+                    before = len(flash_calls)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    logits, cache = fn(*args)
+                    torch.cuda.synchronize()
+                    into.append((time.perf_counter() - t) * 1e3)
+                    if kind == "tick":
+                        tick_flash.append([kw["causal"] for _, kw in flash_calls[before:]])
+                    flash_calls[before:] = []  # nothing kept past the call
+                    if not bool(torch.isfinite(logits).all()):
+                        raise AssertionError(f"families {arch}: non-finite {kind} logits")
+                    if cfg.arch_type == "moe":
+                        drops[kind].append(moe_drop_share(moe_inputs))
+                    return logits, cache
+                return wrapper
+
+            batcher._prefill = timed(batcher._prefill, prefill_ms, "prefill")
+            batcher._decode = timed(batcher._decode, decode_ms, "tick")
+            rng = np.random.default_rng(0)
+            lens = rng.integers(POOL_PROMPT_LENS[0], POOL_PROMPT_LENS[1] + 1, FAMILY_REQUESTS)
+            extra = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+            requests = [Request(request_id=i,
+                                prompt=rng.integers(0, cfg.vocab_size, (int(n),) + extra),
+                                max_new_tokens=POOL_NEW_TOKENS,
+                                query_tokens=bench.query_tokens[i % bench.n_queries])
+                        for i, n in enumerate(lens)]
+            for req in requests:
+                batcher.submit(req)
+            torch.cuda.synchronize()
+            reset_counts()  # the batcher leg starts: count only its launches
+            t_pool = time.perf_counter()
+            with recorded_model_calls(flash_calls, moe_inputs):
+                batcher.run_until_drained()
+            torch.cuda.synchronize()
+            pool_s = time.perf_counter() - t_pool
+            c = counts()
+            done = sorted(batcher.completed, key=lambda r: r.request_id)
+            if [r.request_id for r in done] != list(range(FAMILY_REQUESTS)):
+                raise AssertionError(f"families {arch}: {len(done)} requests completed")
+            for r in done:
+                ok = len(r.generated) == POOL_NEW_TOKENS and all(
+                    (len(t) == cfg.n_codebooks and all(0 <= x < cfg.vocab_size for x in t))
+                    if cfg.n_codebooks else 0 <= t < cfg.vocab_size for t in r.generated)
+                if not ok:
+                    raise AssertionError(f"families {arch}: request {r.request_id} "
+                                         f"generated {r.generated}")
+            ticks = len(decode_ms)
+            want = dict(flash=FAMILY_REQUESTS * (n_self + n_cross) + ticks * n_cross,
+                        ssd=0, topk=len(routed))
+            want_flash = {"wgmma": want["flash"], "fma": 0}
+            want_topk = dict.fromkeys(topk_kernel.ROUTES, 0) | {"cluster": len(routed)}
+            if ({k: c[k] for k in want} != want or c["flash_routes"] != want_flash
+                    or c["topk_routes"] != want_topk or len(prefill_ms) != FAMILY_REQUESTS
+                    or any(t != [False] * n_cross for t in tick_flash)):
+                raise AssertionError(f"families {arch}: batcher launches {c}, expected {want}, "
+                                     f"{want_flash}, {want_topk} ({len(prefill_ms)} prefills, "
+                                     f"{ticks} ticks, {len(routed)} routed batches)")
+            add("pool", c)
+            n_rule = agree([r.route_result for r in done],
+                           dense.route_batch([r.query_tokens for r in done]),
+                           f"families {arch} routing")
+            pool_router.close()
+            dense.close()
+            generated = sum(len(r.generated) for r in done)
+            share = {k: (sum(d for d, _ in v) / max(sum(n for _, n in v), 1), v)
+                     for k, v in drops.items()}
+            rec["batcher"] = dict(
+                requests=FAMILY_REQUESTS, slots=POOL_SLOTS, new_tokens=POOL_NEW_TOKENS,
+                prompt_lens=[int(n) for n in lens], ticks=ticks, seconds=pool_s,
+                generated_tokens_per_s=generated / pool_s, prefill_ms=prefill_ms,
+                prefill_ms_p50=float(np.percentile(prefill_ms, 50)),
+                decode_ms_p50=float(np.percentile(decode_ms, 50)),
+                decode_ms_p99=float(np.percentile(decode_ms, 99)),
+                prefill_tokens_per_s=float(lens.sum() / (sum(prefill_ms) / 1e3)),
+                routed_batches=routed, launches={k: c[k] for k in want},
+                flash_routes=c["flash_routes"], topk_routes=c["topk_routes"],
+                routing_near_tie_rows=n_rule,
+                moe_dropped=({k: dict(share=v[0], per_call=[d / n for d, n in v[1]])
+                              for k, v in share.items()} if cfg.arch_type == "moe" else None))
+            b = rec["batcher"]
+            log(f"families {arch} batcher: {FAMILY_REQUESTS} requests in {ticks} ticks, "
+                f"{pool_s:.2f} s, {b['generated_tokens_per_s']:.1f} generated tokens/s; prefill "
+                f"ms p50 {b['prefill_ms_p50']:.1f} ({b['prefill_tokens_per_s']:.0f} prompt "
+                f"tokens/s), decode ms a tick p50 {b['decode_ms_p50']:.1f} p99 "
+                f"{b['decode_ms_p99']:.1f}; launches " + json.dumps(b["launches"])
+                + " (flash by route " + json.dumps(c["flash_routes"]) + ", topk_sim by route "
+                + json.dumps(c["topk_routes"]) + f"); tools equal to the dense backend's "
+                f"(near-tie rows {n_rule})"
+                + (f"; MoE assignments dropped for capacity: prefill "
+                   f"{share['prefill'][0]:.4f}, decode tick {share['tick'][0]:.4f} (T = "
+                   f"{POOL_SLOTS} slots a tick, empty ones too)" if cfg.arch_type == "moe" else "")
+                + f" on {card}")
+            del batcher, requests, done
+
+        # ---- (b) one 2,048-token prompt: prefill + greedy decode steps,
+        # timed, against a teacher-forced forward; the kernel at its inputs
+        gen_tok = torch.Generator(device=dev).manual_seed(11)
+        shape = (1, CAPTURE_LEN) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+        prompt = torch.randint(0, cfg.vocab_size, shape, generator=gen_tok, device=dev)
+        img = image(1) if n_cross else None
+
+        def run_direct(run_cfg, record):
+            """prefill + n_decode greedy steps: (logits a step, the tokens
+            fed, prefill ms, decode ms, flash calls of prefill and of each
+            step, MoE (dropped, assigned) of each, and each step's MoE
+            inputs at its last position, a (p, row) a layer)."""
+            batch = {"tokens": prompt}
+            if n_cross:
+                batch["image_embeds"] = img
+            flash_calls, moe_inputs = [], []
+            steps, fed, ms, calls, drops, moe_rows = [], [], [], [], [], []
+
+            def close_step(record_calls):
+                calls.append(list(flash_calls) if record_calls else
+                             [kw["causal"] for _, kw in flash_calls])
+                flash_calls.clear()
+                moe_rows.append([(p_, x_[:, -1].clone()) for p_, x_, _ in moe_inputs])
+                drops.append(moe_drop_share(moe_inputs))
+
+            with recorded_model_calls(flash_calls, moe_inputs):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = M.prefill(run_cfg, params, batch,
+                                          max_cache_len=CAPTURE_LEN + n_decode + 1)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+                steps.append(logits[:, -1])
+                close_step(record)
+                for step in range(n_decode):
+                    tok = torch.argmax(steps[-1], dim=-1)[:, None]  # [1, 1(, K)]
+                    fed.append(tok)
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    logits, cache = M.decode_step(run_cfg, params, cache,
+                                                  {"token": tok, "pos": CAPTURE_LEN + step})
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t) * 1e3)
+                    steps.append(logits[:, -1])
+                    close_step(record and step == 0)
+            del cache
+            for s_ in steps:
+                if not bool(torch.isfinite(s_).all()):
+                    raise AssertionError(f"families {arch}: non-finite logits")
+            return steps, fed, ms, calls, drops, moe_rows
+
+        def experts(p_, rows, run_cfg):
+            """The experts each row's router picks, as sorted lists."""
+            top_e = layers.moe_route(p_, rows, run_cfg)[3]
+            return [sorted(r) for r in top_e.tolist()]
+
+        def teacher_forced(run_cfg, steps, fed, moe_rows):
+            """Each step's logits against a forward over the prompt and the
+            fed tokens: (max |d| a step, steps within tolerance, steps whose
+            position some MoE layer routes to other experts in the forward
+            than in the step: a bf16 near-tie of the router, counted and
+            not held)."""
+            batch = {"tokens": torch.cat([prompt] + fed, dim=1)}
+            if n_cross:
+                batch["image_embeds"] = img
+            moe_inputs = []
+            with recorded_model_calls([], moe_inputs):
+                logits, _ = M.forward(run_cfg, params, batch)
+            errs, flips, bad = [], [], []
+            for j, s_ in enumerate(steps):
+                pos = CAPTURE_LEN - 1 + j
+                err, ok = bf16_logits_close(s_, logits[:, pos])
+                errs.append(err)
+                flip = any(experts(p_, row, run_cfg) != experts(p_, x_[:, pos], run_cfg)
+                           for (p_, row), (_, x_, _) in zip(moe_rows[j], moe_inputs))
+                if flip:
+                    flips.append(j)
+                elif not ok:
+                    bad.append(j)
+            del logits, moe_inputs
+            return errs, bad, flips
+
+        reset_counts()  # the direct leg: count its launches
+        steps, fed, ms, calls, drops, moe_rows = run_direct(cfg, record=True)
+        c = counts()
+        want_calls = [[True] * (cfg.cross_attn_every - 1) + [False]] * n_cross if n_cross else [
+            [True] * n_self]
+        prefill_flags = [kw["causal"] for _, kw in calls[0]]
+        if (prefill_flags != [f for g in want_calls for f in g]
+                or [[kw["causal"] for _, kw in calls[1]]] + calls[2:] != [[False] * n_cross] * n_decode
+                or c["flash"] != n_self + n_cross * (1 + n_decode) or c["ssd"] or c["topk"]
+                or c["flash_routes"] != {"wgmma": c["flash"], "fma": 0}):
+            raise AssertionError(f"families {arch}: direct leg launches {c}, prefill flags "
+                                 f"{prefill_flags}")
+        add("pool", c)
+        errs, bad, flips = teacher_forced(cfg, steps, fed, moe_rows)
+        rec["direct"] = dict(prompt=CAPTURE_LEN, decode_steps=n_decode, prefill_ms=ms[0],
+                             decode_ms=ms[1:], decode_ms_p50=float(np.median(ms[1:])),
+                             tokens_per_s=1e3 / float(np.median(ms[1:])),
+                             launches=c["flash"], teacher_forced_max_abs=errs)
+        if cfg.arch_type == "moe":
+            # capacity depends on T, so a forward over 2,048 + n tokens drops
+            # other assignments than the prefill over 2,048 and the decode
+            # steps over 1: printed here (with the steps outside tolerance),
+            # held below with the capacity at T, where nothing drops
+            rec["direct"].update(moe_dropped=[d / n for d, n in drops],
+                                 outside_tolerance_at_config_capacity=bad + flips)
+            nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts
+                                         / cfg.experts_per_token)
+            nd_steps, nd_fed, _, _, nd_drops, nd_rows = run_direct(nodrop, record=False)
+            if any(d for d, _ in nd_drops):
+                raise AssertionError(f"families {arch}: drops at capacity T")
+            nd_errs, bad, flips = teacher_forced(nodrop, nd_steps, nd_fed, nd_rows)
+            rec["direct"].update(teacher_forced_no_drop_max_abs=nd_errs,
+                                 router_near_tie_steps=flips)
+            del nd_steps, nd_fed, nd_rows
+        if bad or len(flips) > len(steps) // 2:
+            raise AssertionError(
+                f"families {arch}: prefill + decode against the teacher-forced forward "
+                f"max|d| a step {rec['direct'].get('teacher_forced_no_drop_max_abs', errs)}, "
+                f"outside tolerance at steps {bad}, router near-ties at {flips}")
+        d = rec["direct"]
+        log(f"families {arch} direct: {CAPTURE_LEN}-token prefill {d['prefill_ms']:.1f} ms, "
+            f"{n_decode} decode steps p50 {d['decode_ms_p50']:.1f} ms "
+            f"({d['tokens_per_s']:.1f} tokens/s at batch 1); flash launches "
+            f"{c['flash']} ({n_self} causal + {n_cross} causal=False in the prefill, "
+            f"{n_cross} causal=False a step; all wgmma); logits within 3e-2 + 2 bf16 ulps of "
+            f"the row max of a teacher-forced forward, max|d| a step "
+            + json.dumps([round(e, 4) for e in d.get("teacher_forced_no_drop_max_abs", errs)])
+            + (f" with nothing dropped (capacity T; steps whose router picks other experts "
+               f"in the forward, counted, not held: {flips}); at the config's capacity max|d| "
+               + json.dumps([round(e, 4) for e in errs]) + ", assignments dropped "
+               + json.dumps([round(x, 4) for x in d["moe_dropped"]])
+               + " (prefill, then each step; printed, not held)" if cfg.arch_type == "moe"
+               else "") + f" on {card}")
+
+        # the kernel against its plain version at the captured inputs
+        self_call = next(call for call in calls[0] if call[1]["causal"])
+        check_flash(f"{arch} self-attention layer 0 prefill", *self_call[0], **self_call[1])
+        if n_cross:
+            cross_prefill = next(call for call in calls[0] if not call[1]["causal"])
+            cross_decode = calls[1][0]
+            for what, ((q, k, v), kw) in (("prefill", cross_prefill), ("decode", cross_decode)):
+                check_flash(f"{arch} cross-attention {what}", q, k, v, **kw)
+                # the check has teeth here: the kernel over the whole tiles
+                # alone (the 64-key tail tile dropped) must fail it against
+                # the plain version over all the keys
+                whole = k.shape[1] // 128 * 128
+                e = flash_error(flash_kernel.flash_attention_cuda(
+                    q, k[:, :whole].contiguous(), v[:, :whole].contiguous(), **kw),
+                    attention_ref(q, k, v, **kw))
+                if flash_within(e, "bfloat16"):
+                    raise AssertionError(f"families {arch}: the cross-attention {what} check "
+                                         f"passes a kernel over {whole} of {k.shape[1]} keys: {e}")
+                log(f"families {arch} cross-attention {what}: the kernel over the first {whole} "
+                    f"of {k.shape[1]} keys fails the check, as it must: max|d| "
+                    f"{e['max_abs_err']:.3g} (limit {e['atol']:.3g}), ||d||/||plain|| "
+                    f"{e['rel_norm']:.3g} (limit {FLASH_BF16_RTOL})")
+                g = q.shape[0] // k.shape[0]
+                q4 = q.view(1, *q.shape)
+                k4, v4 = (t.repeat_interleave(g, dim=0).view(1, q.shape[0], *t.shape[1:])
+                          for t in (k, v))
+                b_ms, b_by = flash_bound(q, k, v, False, 0, 0)
+                row = dict(what=what, q=list(q.shape), kv=list(k.shape), dtype=str(q.dtype),
+                           route=flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v),
+                           ms=cuda_ms(lambda: flash_kernel.flash_attention_cuda(q, k, v, **kw),
+                                      iters=50),
+                           plain_ms=cuda_ms(lambda: attention_ref(q, k, v, **kw), iters=10),
+                           library_ms=cuda_ms(
+                               lambda: torch.nn.functional.scaled_dot_product_attention(
+                                   q4, k4, v4), iters=50),
+                           bound_ms=b_ms, bound_by=b_by)
+                out["cross_shapes"].append(row)
+                log(f"time flash_attention cross-attention {what} q{row['q']} kv{row['kv']} "
+                    f"causal=False ({row['route']}): kernel {row['ms']:.4f} ms, plain "
+                    f"{row['plain_ms']:.4f}, SDPA (kv repeated, no mask) "
+                    f"{row['library_ms']:.4f}, bound {b_ms:.4f} ({b_by}) on {card}")
+        del steps, fed, calls, moe_rows, prompt, img
+
+        # ---- (c) the launcher in process, on the card and on the CPU
+        if batcher_leg:
+            runs = {}
+            for where in ("card", "cpu"):
+                argv = ["--arch", arch] + FAMILY_LAUNCH + (
+                    ["--device", str(dev), *FAMILY_LAUNCH_CARD[arch]] if where == "card"
+                    else ["--smoke", "--device", "cpu"])
+                reset_counts()
+                run = run_launcher(argv, where == "card")
+                run["printed"].update(dumps=[], latency_burns=0)
+                run["counts"] = counts()  # the card run's are this path's launches
+                runs[where] = run
+                for line in run["text"].splitlines():
+                    log(f"launch ({arch}, {where}) | {line}")
+            card_run = runs["card"]
+            c = card_run["counts"]
+            lcfg = serve.pool_config(arch, "--smoke" in FAMILY_LAUNCH_CARD[arch])
+            l_cross = lcfg.n_layers // lcfg.cross_attn_every if lcfg.cross_attn_every else 0
+            n_req = sum(len(b_[2]) for b_ in card_run["rec"]["batches"])
+            n_new = int(FAMILY_LAUNCH[FAMILY_LAUNCH.index("--max-new-tokens") + 1])
+            want = n_req * lcfg.n_layers + n_req * (n_new - 1) * l_cross
+            for call in card_run["rec"]["flash"]:
+                if call["launched"] != {call["want"]: 1}:
+                    raise AssertionError(f"launch ({arch}): flash call {call['shape']} "
+                                         f"launched {call['launched']} (want {call['want']})")
+            if (c["flash"] != want or c["ssd"] or not c["topk"]
+                    or c["topk"] != sum(sum(x["launched"].values())
+                                        for x in card_run["rec"]["topk"])
+                    or len(card_run["prefill_ms"]) != n_req):
+                raise AssertionError(f"launch ({arch}): launches {c}, expected {want} flash")
+            add("launch", c)
+            n_rule, _ = launch_parity(arch, card_run, runs["cpu"], n_req)
+            p = card_run["printed"]
+            rec["launch"] = dict(argv=card_run["argv"], seconds=card_run["seconds"],
+                                 cpu_seconds=runs["cpu"]["seconds"], r5=p["r5"],
+                                 near_tie_rows=n_rule, launches=c["flash"],
+                                 flash_routes=c["flash_routes"], topk_routes=c["topk_routes"],
+                                 prefill_ms_p50=float(np.median(card_run["prefill_ms"])),
+                                 decode_ms_p50=float(np.median(card_run["decode_ms"])))
+            log(f"launch ({arch}) on the card ({lcfg.name}): {card_run['seconds']:.1f} s in "
+                f"process ({runs['cpu']['seconds']:.1f} s on the CPU at --smoke); {n_req} "
+                f"requests, R@5 {p['r5']:.3f}, prefill ms p50 {rec['launch']['prefill_ms_p50']:.2f}, "
+                f"decode ms a token p50 {rec['launch']['decode_ms_p50']:.2f}; flash launches "
+                f"{c['flash']} by route " + json.dumps(c["flash_routes"]) + ", topk_sim by route "
+                + json.dumps(c["topk_routes"]) + f"; printed results equal to the CPU run's "
+                f"(near-tie rows {n_rule}) on {card}")
+            del runs, card_run
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_family
+        rec["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        out["families"][arch] = rec
+        log(f"families {arch}: {rec['seconds']:.1f} s, peak device memory "
+            f"{rec['peak_memory_gb']:.1f} GB; params and caches freed")
+    return out
 
 
 @contextlib.contextmanager
@@ -1973,7 +2539,7 @@ def main() -> int:
     flash_checks, ssd_checks = [], []
 
     def check_flash(name, q, k, v, causal=True, window=0, q_offset=0, route=None):
-        """Kernel against plain version within FLASH_ATOL of the dtype; the
+        """Kernel against plain version within `flash_error`'s limits; the
         launch must take the route `flash_route` gives (or `route`, forced)."""
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         want = route or flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v)
@@ -1986,15 +2552,17 @@ def main() -> int:
         dtype = str(q.dtype).replace("torch.", "")
         if not bool(torch.isfinite(got).all()):
             raise AssertionError(f"flash_attention {name}: non-finite output ({want})")
-        err = float((got.float() - ref.float()).abs().max())
-        if not err <= FLASH_ATOL[dtype]:
-            raise AssertionError(f"flash_attention {name}: max|d|={err:.3g} > "
-                                 f"{FLASH_ATOL[dtype]} ({dtype}, {want})")
+        e = flash_error(got, ref)
+        said = (f"max|d|={e['max_abs_err']:.3g} (limit {e['atol']:.3g}; max|plain| "
+                f"{e['max_abs_ref']:.3g}), ||d||/||plain||={e['rel_norm']:.3g}"
+                + (f" (limit {FLASH_BF16_RTOL})" if dtype == "bfloat16" else ""))
+        if not flash_within(e, dtype):
+            raise AssertionError(f"flash_attention {name}: {said} ({dtype}, {want})")
         flash_checks.append(dict(case=name, dtype=dtype, route=want, bh=q.shape[0],
                                  bhkv=k.shape[0], sq=q.shape[1], skv=k.shape[1], hd=q.shape[2],
-                                 **kw, max_abs_err=err, atol=FLASH_ATOL[dtype]))
+                                 **kw, **e))
         log(f"kernel check flash_attention {name} {dtype} {want} q{list(q.shape)} "
-            f"kv{list(k.shape)} {kw}: max|d|={err:.3g} (atol {FLASH_ATOL[dtype]})")
+            f"kv{list(k.shape)} {kw}: {said}")
 
     def check_ssd(name, x, dt, a_log, bm, cm, chunk):
         """y within SSD_ATOL (+ one bf16 ulp when y is bf16), state within
@@ -2717,6 +3285,22 @@ def main() -> int:
         + ", topk_sim by route " + json.dumps(launch["topk_routes"]) + ", flash by route "
         + json.dumps(launch["flash_routes"]))
 
+    # ------------------------------------------------------------- 12. families
+    # the pool's MoE, cross-attention and codebook families at full width;
+    # the phase counts its paths' launches itself (batcher, direct, launcher)
+    t_families = time.perf_counter()
+    families = families_phase(dev, card, gen, check_flash, router, db_native, bench, agree)
+    families["seconds"] = time.perf_counter() - t_families
+    log(f"families path: {families['seconds']:.1f} s; full-width legs: launches "
+        + json.dumps(families["pool"]["launches"]) + ", flash by route "
+        + json.dumps(families["pool"]["flash_routes"]) + ", topk_sim by route "
+        + json.dumps(families["pool"]["topk_routes"]) + "; the launcher's card runs: launches "
+        + json.dumps(families["launch"]["launches"]) + ", flash by route "
+        + json.dumps(families["launch"]["flash_routes"]) + ", topk_sim by route "
+        + json.dumps(families["launch"]["topk_routes"]))
+    if families["pool"]["flash_routes"]["fma"]:
+        raise AssertionError("families: a full-width bf16 leg launched the fma route")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -3004,7 +3588,8 @@ def main() -> int:
         replaces="src/repro/kernels/topk_sim/kernel.py:89",
         launches=(main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches
                   + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]
-                  + launch["launches"]["topk_sim"]),
+                  + launch["launches"]["topk_sim"] + families["pool"]["launches"]["topk"]
+                  + families["launch"]["launches"]["topk"]),
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -3016,12 +3601,16 @@ def main() -> int:
                           "pipeline": pipe_launches, "loop": loop_launches,
                           "learn": later_paths["learn"]["launches"],
                           "ivf": later_paths["ivf"]["launches"],
-                          "launch": launch["launches"]["topk_sim"]},
+                          "launch": launch["launches"]["topk_sim"],
+                          "families": families["pool"]["launches"]["topk"],
+                          "families_launch": families["launch"]["launches"]["topk"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
                            "ivf": later_paths["ivf"]["routes"],
-                           "launch": launch["topk_routes"]},
+                           "launch": launch["topk_routes"],
+                           "families": families["pool"]["topk_routes"],
+                           "families_launch": families["launch"]["topk_routes"]},
         rescored={"serve": serve_rescored}, launch_shapes=launch_times["topk_sim"],
         crossover=crossover, host_vs_device=host_split,
     ), dict(
@@ -3038,22 +3627,30 @@ def main() -> int:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:112",
-        launches=pool_launches["flash_attention"] + launch["launches"]["flash_attention"],
+        launches=(pool_launches["flash_attention"] + launch["launches"]["flash_attention"]
+                  + families["pool"]["launches"]["flash"]
+                  + families["launch"]["launches"]["flash"]),
         launches_by_path={"pool": pool_launches["flash_attention"],
-                          "launch": launch["launches"]["flash_attention"]},
+                          "launch": launch["launches"]["flash_attention"],
+                          "families": families["pool"]["launches"]["flash"],
+                          "families_launch": families["launch"]["launches"]["flash"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
                    window=kw["window"], dtype=str(q.dtype)),
         library="scaled_dot_product_attention with the same boolean mask, kv repeated",
         ms_by_route=f_ms_by_route,
-        launches_by_route={"pool": pool_flash_routes, "launch": launch["flash_routes"]},
-        launch_shapes=launch_times["flash_attention"], checks=flash_checks,
+        launches_by_route={"pool": pool_flash_routes, "launch": launch["flash_routes"],
+                           "families": families["pool"]["flash_routes"],
+                           "families_launch": families["launch"]["flash_routes"]},
+        launch_shapes=launch_times["flash_attention"], cross_shapes=families["cross_shapes"],
+        checks=flash_checks,
     ), dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:102",
         launches=pool_launches["ssd_scan"] + launch["launches"]["ssd_scan"],
-        launches_by_path={"pool": pool_launches["ssd_scan"], "launch": launch["launches"]["ssd_scan"]},
+        launches_by_path={"pool": pool_launches["ssd_scan"], "launch": launch["launches"]["ssd_scan"],
+                          "families": 0, "families_launch": 0},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
@@ -3071,7 +3668,8 @@ def main() -> int:
                                  rerank_candidates_near_tie_rows=n_cand_rule,
                                  seconds=pipe_s),
                    loop=loop, learn=later_paths["learn"]["summary"],
-                   ivf=later_paths["ivf"]["summary"], launch=launch)
+                   ivf=later_paths["ivf"]["summary"], launch=launch,
+                   families={k: v for k, v in families.items() if k != "cross_shapes"})
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -10,9 +10,11 @@ mined hard negatives, early-stopped on validation NDCG@5.
 
 Triplet mining is numpy with `np.random.default_rng(seed)`, bitwise the
 reference's. Training runs with autograd on the device of its inputs; its
-init and permutations come from a `torch.Generator` seeded with
-`config.seed`, which draws other numbers than `jax.random` from the same
-seed, so trained params agree with the reference's only statistically.
+init and permutations are drawn from a CPU `torch.Generator` seeded with
+`config.seed` and copied to that device, so one seed trains the same
+adapter on the card as on the CPU, as a JAX key does. The draws are other
+numbers than `jax.random`'s from the same seed, so trained params agree
+with the reference's only statistically.
 """
 from __future__ import annotations
 
@@ -158,12 +160,12 @@ def train_adapter(
     """InfoNCE training with early stopping on validation NDCG@5 (§5.5).
 
     Arrays may be numpy (copied to `device`, None meaning the card) or
-    tensors already there. Returns (best params, history).
+    tensors already there; the init and permutations are drawn on the CPU.
+    Returns (best params, history).
     """
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(config.seed)
-    params = init_adapter(gen)
+    gen = torch.Generator().manual_seed(config.seed)
+    params = {k: v.to(device) for k, v in init_adapter(gen).items()}
     opt = optim.adamw(config.lr)
     opt_state = opt.init(params)
 
@@ -200,7 +202,7 @@ def train_adapter(
         return params, history
     steps_per_epoch = max(n // bs, 1)
     for epoch in range(config.epochs):
-        perm = torch.randperm(n, generator=gen, device=device)
+        perm = torch.randperm(n, generator=gen).to(device)
         ep_loss = torch.zeros((), device=device)
         for s in range(steps_per_epoch):
             rows = perm[s * bs: (s + 1) * bs]

@@ -7,9 +7,11 @@ and keeps the top-K by MLP score. Params keep the JAX layout
 (`w{i}: [din, dout]`, `b{i}: [dout]`).
 
 Training runs with autograd on the device of its inputs; its init,
-permutations and dropout masks come from a `torch.Generator` seeded with
-`config.seed`, which draws other numbers than `jax.random` from the same
-seed, so trained params agree with the reference's only statistically.
+permutations and dropout masks are drawn from a CPU `torch.Generator`
+seeded with `config.seed` and copied to that device, so one seed trains
+the same model on the card as on the CPU, as a JAX key does. The draws
+are other numbers than `jax.random`'s from the same seed, so trained
+params agree with the reference's only statistically.
 """
 from __future__ import annotations
 
@@ -74,7 +76,8 @@ def mlp_forward(
     """x: [..., 7] -> logits [...]. Sigmoid is applied in the loss/score.
 
     With `dropout > 0` and a generator, each hidden unit is kept with
-    probability 1 - dropout (inverted dropout, masks drawn from it)."""
+    probability 1 - dropout (inverted dropout, masks drawn from it on its
+    own device and copied to x's)."""
     h = x
     n_layers = len(LAYERS) - 1
     for li in range(n_layers):
@@ -82,7 +85,8 @@ def mlp_forward(
         if li < n_layers - 1:
             h = torch.relu(h)
             if dropout > 0.0 and generator is not None:
-                keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - dropout
+                keep = (torch.rand(h.shape, generator=generator, device=generator.device)
+                        < 1.0 - dropout).to(h.device)
                 h = torch.where(keep, h / (1.0 - dropout), 0.0)
     return h[..., 0]
 
@@ -101,12 +105,11 @@ def train_reranker(
     config: RerankerConfig = RerankerConfig(),
     device: Union[str, torch.device, None] = None,
 ) -> tuple[dict, list[float]]:
-    """BCE training with AdamW on `device` (None: the card). Returns
-    (params, per-epoch losses)."""
+    """BCE training with AdamW on `device` (None: the card), its draws from
+    a CPU generator. Returns (params, per-epoch losses)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(config.seed)
-    params = init_mlp(gen)
+    gen = torch.Generator().manual_seed(config.seed)
+    params = {k: v.to(device) for k, v in init_mlp(gen).items()}
     opt = optim.adamw(config.lr, weight_decay=config.weight_decay)
     opt_state = opt.init(params)
 
@@ -125,7 +128,7 @@ def train_reranker(
 
     losses = []
     for _ in range(config.epochs):
-        perm = torch.randperm(n, generator=gen, device=device)
+        perm = torch.randperm(n, generator=gen).to(device)
         epoch_loss = torch.zeros((), device=device)
         for s in range(steps_per_epoch):
             idx = perm[s * bs: s * bs + bs]

@@ -10,10 +10,13 @@ lines and shutdown order. It wires together the full paper pipeline
 (Fig. 2): a synthetic MetaTool-like tool database, the OATS offline
 refinement job (Stage 1 + validation gate + atomic table swap), the
 serving path (embed -> top-K -> attach tools, on the fused backend the
-`topk_sim` kernel), and a backend model pool doing real prefill + greedy
-decode (on the card the `flash_attention` and `ssd_scan` kernels in every
-prefill), with the telemetry plane around it: SLO engine, JIT profiler,
-flight recorder, sampling profiler and the `ObsServer`.
+`topk_sim` kernel), and a backend model pool of any family doing real
+prefill + greedy decode (on the card the `flash_attention` and `ssd_scan`
+kernels in every prefill, and the VLM's cross-attention through
+`flash_attention` in decode too; codebook prompts [1, 32, K] and zero
+image embeddings, as the reference feeds them), with the telemetry plane
+around it: SLO engine, JIT profiler, flight recorder, sampling profiler
+and the `ObsServer`.
 
 `--device` is `cuda` unless the caller asks for the CPU; without a card
 the launcher raises (`resolve_device`), it never carries on on the CPU.
@@ -34,7 +37,7 @@ import argparse
 import signal
 import sys
 import time
-from typing import List, Tuple
+from typing import List, Tuple, Union
 
 import numpy as np
 import torch
@@ -172,26 +175,29 @@ def build_router(
 
 
 def pool_config(arch: str, smoke: bool) -> ModelConfig:
-    """The backend model: `arch` at full width, or reduced with `smoke`;
-    raises NotImplementedError for the families the port does not run."""
+    """The backend model: `arch` at full width, or reduced with `smoke`."""
     cfg = get_config(arch)
-    if smoke:
-        cfg = reduced(cfg)
-    M.check_supported(cfg)
-    return cfg
+    return reduced(cfg) if smoke else cfg
 
 
 def generate(
     cfg: ModelConfig, params, prompt: torch.Tensor, max_new_tokens: int
-) -> Tuple[List[int], List[torch.Tensor]]:
+) -> Tuple[List[Union[int, List[int]]], List[torch.Tensor]]:
     """One request through the pool, as the reference's launcher runs it:
-    prefill `prompt` [1, S] with a `MAX_CACHE_LEN`-slot cache, take the
-    greedy token, then `max_new_tokens - 1` greedy decode steps at
-    positions S, S+1, ... Returns (the tokens, each step's last-position
-    logits [1, 1, V]); at least one token, from the prefill."""
-    logits, cache = M.prefill(cfg, params, {"tokens": prompt}, max_cache_len=MAX_CACHE_LEN)
+    prefill `prompt` [1, S] ([1, S, K] for a codebook model; a VLM's with
+    zero image embeddings [1, I, d_model], as the reference feeds) with a
+    `MAX_CACHE_LEN`-slot cache, take the greedy token, then
+    `max_new_tokens - 1` greedy decode steps at positions S, S+1, ...
+    Returns (the tokens, each an int or a list of K ids, and each step's
+    last-position logits [1, 1, (K,) V]); at least one token, from the
+    prefill."""
+    batch = {"tokens": prompt}
+    if cfg.cross_attn_every:
+        batch["image_embeds"] = torch.zeros((1, cfg.n_image_tokens, cfg.d_model),
+                                            device=prompt.device)
+    logits, cache = M.prefill(cfg, params, batch, max_cache_len=MAX_CACHE_LEN)
     steps = [logits[:, -1:]]
-    tok = torch.argmax(steps[-1], dim=-1)
+    tok = torch.argmax(steps[-1], dim=-1)  # [1, 1] or [1, 1, K]
     tokens = [tok]
     for step in range(max_new_tokens - 1):
         logits, cache = M.decode_step(cfg, params, cache,
@@ -199,7 +205,7 @@ def generate(
         steps.append(logits[:, -1:])
         tok = torch.argmax(steps[-1], dim=-1)
         tokens.append(tok)
-    return [int(t) for t in torch.cat(tokens).flatten().tolist()], steps
+    return [t.reshape(-1).tolist() if cfg.n_codebooks else int(t) for t in tokens], steps
 
 
 def main(argv=None):
@@ -261,8 +267,7 @@ def main(argv=None):
                          "n_tables (8) slots, LRU-evicted beyond this")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    # refuse what cannot run before any work: no card, or a model family
-    # the port does not run yet
+    # refuse what cannot run before any work: no card
     device = resolve_device(args.device)
     cfg = pool_config(args.arch, args.smoke)
 
@@ -406,8 +411,11 @@ def _serve_body(args, cfg, device, bench, router, pipe, bus, tracer, quality, mo
     for qi, res in zip(test, results):
         lat.append(res.latency_ms)
         hits += int(any(t % base_t == bench.relevant[qi][0] for t in res.tools))
-        # 2) backend: prefill the (stub-tokenized) request + decode new tokens
-        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, PROMPT_LEN))).to(device)
+        # 2) backend: prefill the (stub-tokenized) request + decode new
+        #    tokens; a codebook model takes K ids a position, a VLM zero
+        #    image embeddings (in generate), as in the reference
+        prompt_shape = (1, PROMPT_LEN, cfg.n_codebooks) if cfg.n_codebooks else (1, PROMPT_LEN)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, prompt_shape)).to(device)
         generate(cfg, params, prompt, args.max_new_tokens)
         # 3) feedback: log the outcome for the next refinement cycle
         for t in res.tools:

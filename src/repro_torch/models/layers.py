@@ -1,5 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, GQA attention (full causal /
-sliding window / decode) and the SwiGLU MLP.
+sliding window / decode), the SwiGLU MLP, capacity-based MoE and gated
+cross-attention.
 
 Counterpart of `repro/models/layers.py`, with the same shapes and casts.
 Parameters arrive as sub-dicts of the trees made in `repro_torch.models.
@@ -11,8 +12,11 @@ the card), which computes what `gqa_attention` computes under
 plain version, `kernels/flash_attention/ref.py::attention_mask`);
 single-token decode (`attn_decode`) keeps the plain `gqa_attention` over
 its ring-buffer mask, as the JAX decode runs outside any Pallas kernel.
-`moe_block` and `cross_attn_block` are not ported yet (ROADMAP.md queue 1,
-item 8).
+`moe_block` keeps the reference's capacity-based scatter dispatch, its
+router top-k in `lax.top_k`'s tie order (`stable_topk`) and its expert
+products as batched einsums. `cross_attn_block` attends the image K/V
+through the flash-attention kernel with `causal=False`, in prefill and in
+single-token decode alike (the reference's all-ones mask).
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.retrieval import stable_topk
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
 
@@ -32,6 +37,11 @@ __all__ = [
     "attn_block",
     "attn_decode",
     "swiglu",
+    "moe_capacity",
+    "moe_route",
+    "moe_block",
+    "cross_attn_block",
+    "cross_attn_kv",
 ]
 
 NEG_INF = -2.0**30
@@ -162,3 +172,110 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
         "bsd,df->bsf", x, p["w_up"]
     )
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts: capacity-based scatter dispatch.
+# --------------------------------------------------------------------------
+
+
+def moe_capacity(t: int, cfg: ModelConfig) -> int:
+    """Slots per expert for a batch of `t` tokens (at least one)."""
+    return max(int(math.ceil(t * cfg.experts_per_token / cfg.n_experts
+                             * cfg.capacity_factor)), 1)
+
+
+def moe_route(p: dict, xt: torch.Tensor, cfg: ModelConfig):
+    """The router of `moe_block` over tokens xt [T, D]: (logits [T, E] and
+    probs in float32, top_w and top_e [T, k], keep [T*k] (the assignment
+    fits its expert's buffer) and target [T*k], its buffer row, E*cap for
+    a dropped one). Assignments are counted token-major, so a token's
+    slots come before the next token's."""
+    e, k = cfg.n_experts, cfg.experts_per_token
+    cap = moe_capacity(xt.shape[0], cfg)
+    logits = torch.einsum("td,de->te", xt, p["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = stable_topk(probs, k)  # [T, k], ties to the lowest expert
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    # position of each (token, slot) assignment within its expert's buffer
+    flat_e = top_e.reshape(-1)  # [T*k]
+    onehot = F.one_hot(flat_e, e)  # [T*k, E]
+    pos = torch.cumsum(onehot, dim=0) - onehot  # pre-count
+    slot = torch.gather(pos, 1, flat_e[:, None])[:, 0]  # [T*k]
+    keep = slot < cap
+    target = torch.where(keep, flat_e * cap + slot, e * cap)  # overflow -> dropped row
+    return logits, probs, top_w, top_e, keep, target
+
+
+def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routed experts with capacity; returns (y, aux_loss).
+
+    Dispatch is a scatter into per-expert buffers [E, C, D], the expert
+    FFNs run as one batched einsum, and tokens gather their k expert
+    outputs back. Capacity depends on the batch: T = B*S tokens share
+    ceil(T*k/E * capacity_factor) slots an expert.
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    t = b * s
+    cap = moe_capacity(t, cfg)
+    xt = x.reshape(t, d)
+    logits, probs, top_w, top_e, keep, target = moe_route(p, xt, cfg)
+
+    data = xt.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
+    buffers = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+    buffers.index_add_(0, target, data)
+    buf = buffers[: e * cap].reshape(e, cap, d)
+
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"])) * torch.einsum(
+        "ecd,edf->ecf", buf, p["w_up"]
+    )
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e * cap, d)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))], dim=0)
+
+    gathered = out_buf[target]  # [T*k, D]
+    w = (top_w.reshape(-1) * keep).to(x.dtype)
+    y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+
+    # Switch-style load-balance loss + router z-loss
+    frac_tokens = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    lb = e * (frac_tokens * frac_probs).sum() * cfg.load_balance_weight
+    z = (torch.logsumexp(logits, dim=-1) ** 2).mean() * cfg.router_z_weight
+    return y, lb + z
+
+
+# --------------------------------------------------------------------------
+# Gated cross-attention (llama-3.2-vision style image layers).
+# --------------------------------------------------------------------------
+
+
+def cross_attn_block(
+    p: dict,
+    x: torch.Tensor,  # [B, S, D] text stream
+    cfg: ModelConfig,
+    img_k: torch.Tensor,  # [B, I, Hkv, hd] precomputed from patch embeddings
+    img_v: torch.Tensor,
+) -> torch.Tensor:
+    """x + tanh(g_a)*xattn + tanh(g_f)*ffn — the vision-conditioning layer.
+
+    Every text position attends every image token: the flash-attention
+    kernel with `causal=False` and no window, over heads-major copies of
+    q and of the image K/V (S = 1 in decode)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    b, s, nh, hd = q.shape
+    out = flash_attention(_heads_major(q), _heads_major(img_k), _heads_major(img_v),
+                          causal=False, window=0)
+    out = out.reshape(b, nh, s, hd).permute(0, 2, 1, 3)
+    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    x = x + torch.tanh(p["gate_attn"]) * out
+    h = rms_norm(x, p["ln2"], cfg.norm_eps)
+    return x + torch.tanh(p["gate_ffn"]) * swiglu(p["mlp"], h)
+
+
+def cross_attn_kv(p: dict, img_embeds: torch.Tensor, cfg: ModelConfig):
+    """Project (stubbed) vision-tower patch embeddings to K/V once."""
+    k = torch.einsum("bid,dhk->bihk", img_embeds, p["wk"])
+    v = torch.einsum("bid,dhk->bihk", img_embeds, p["wv"])
+    return k, v

@@ -10,8 +10,12 @@ a request has its tokens or its slot reaches `max_len - 1`. When given a
 `SemanticRouter`, admission tool-routes the requests it is about to admit
 in one `route_batch` call. Decode is eager PyTorch on the params' device;
 prefill runs the hand-written kernels there (`models/layers.py`,
-`models/ssm.py`). The codebook and image branches of the reference wait
-with their model families (`models.model.check_supported`).
+`models/ssm.py`). As in the reference, a codebook model's slots carry K
+ids a token (each generated token is a list of K ids), and a VLM's
+requests are prefilled with zero image embeddings, their image K/V
+spliced into the slot's rows like every other cache entry. An MoE
+model's decode runs all `n_slots` rows, empty ones too, through its
+experts: they take capacity, as in the reference.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ __all__ = ["Request", "ContinuousBatcher"]
 @dataclasses.dataclass
 class Request:
     request_id: int
-    prompt: np.ndarray  # [S]
+    prompt: np.ndarray  # [S] (or [S, K] for codebook archs)
     max_new_tokens: int
     tools: Optional[List[int]] = None  # attached by the semantic router
     query_tokens: Optional[np.ndarray] = None  # routed at admission when set
@@ -66,7 +70,6 @@ class ContinuousBatcher:
         router=None,  # Optional[SemanticRouter]: batch-routes at admission
         device: Union[str, torch.device, None] = None,
     ):
-        M.check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -82,7 +85,8 @@ class ContinuousBatcher:
         self._prefill = lambda p, b: M.prefill(cfg, p, b, max_cache_len=max_len)
         self._decode = lambda p, c, b: M.decode_step(cfg, p, c, b)
         self._cache = self._empty_cache()
-        self._tokens = torch.zeros((n_slots, 1), dtype=torch.int64, device=self.device)
+        self._tokens = torch.zeros(self._token_shape(n_slots), dtype=torch.int64,
+                                   device=self.device)
 
     # ---------------------------------------------------------------- setup
     def _empty_cache(self) -> Dict[str, torch.Tensor]:
@@ -92,6 +96,14 @@ class ContinuousBatcher:
             for name, s in tree_leaves(M.cache_spec(self.cfg, self.n_slots, self.max_len))
             if isinstance(s, ParamSpec)
         }
+
+    def _token_shape(self, rows: int):
+        return (rows, 1, self.cfg.n_codebooks) if self.cfg.n_codebooks else (rows, 1)
+
+    def _generated(self, tok: np.ndarray):
+        """One row's sampled token as a request records it: an int, or the
+        list of K codebook ids."""
+        return tok.reshape(-1).tolist() if self.cfg.n_codebooks else int(tok.reshape(-1)[0])
 
     # ------------------------------------------------------------- admission
     def submit(self, req: Request):
@@ -124,12 +136,16 @@ class ContinuousBatcher:
             req = self.queue.popleft()
             req.admitted_at_tick = self.tick_count
             # prefill this request alone (batch-1) and splice into the cache
-            tokens = torch.as_tensor(np.asarray(req.prompt)[None], device=self.device)
-            logits, cache1 = self._prefill(self.params, {"tokens": tokens})
+            batch = {"tokens": torch.as_tensor(np.asarray(req.prompt)[None], device=self.device)}
+            if self.cfg.cross_attn_every:
+                batch["image_embeds"] = torch.zeros(
+                    (1, self.cfg.n_image_tokens, self.cfg.d_model),
+                    dtype=getattr(torch, self.cfg.dtype), device=self.device)
+            logits, cache1 = self._prefill(self.params, batch)
             self._splice_cache(slot, cache1)
             tok = self.sample(logits[:, -1])
-            req.generated.append(int(tok.reshape(-1)[0]))
-            self._tokens[slot] = tok.reshape(-1)[0]
+            req.generated.append(self._generated(tok.cpu().numpy()))
+            self._tokens[slot] = tok.reshape(self._token_shape(1))[0]
             self.slots[slot] = req
             self.slot_pos[slot] = len(req.prompt)
 
@@ -149,12 +165,12 @@ class ContinuousBatcher:
             logits, self._cache = self._decode(
                 self.params, self._cache, {"token": self._tokens, "pos": pos},
             )
-            toks = self.sample(logits[:, -1]).reshape(self.n_slots, 1)
+            toks = self.sample(logits[:, -1]).reshape(self._token_shape(self.n_slots))
             self._tokens[active] = toks[active]  # empty slots keep their pad token
-            host = toks.reshape(-1).cpu().numpy()
+            host = toks.cpu().numpy()
             for i in active:
                 req = self.slots[i]
-                req.generated.append(int(host[i]))
+                req.generated.append(self._generated(host[i]))
                 self.slot_pos[i] += 1
                 if req.done or self.slot_pos[i] >= self.max_len - 1:
                     req.finished_at_tick = self.tick_count

@@ -8,6 +8,7 @@ only the port's dependencies. There, run it without the suite's conftest
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 import functools
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -412,7 +413,23 @@ FLASH_SHAPES = [  # bh, bhkv, sq, skv, hd, causal, window, q_offset
     (2, 2, 300, 300, 80, True, 100, 0),  # hd 80 (padded to 128) with a window
     (3, 1, 130, 260, 128, True, 70, 130),  # hd 128, window, two boxes a row
     (2, 2, 64, 100, 32, True, 0, 36),  # hd under one 64-column box
+    # llama-3.2-vision-90b's cross-attention: a 2,048-token prompt, then a
+    # 4-slot decode tick, over 1,600 image tokens (not a multiple of 128)
+    (64, 8, 2048, 1600, 128, False, 0, 0),
+    (256, 32, 1, 1600, 128, False, 0, 0),
 ]
+
+
+def _within_bf16_scale(got, want):
+    """bf16 flash output against its plain version at the output's scale:
+    max|d| within two bf16 ulps of max|plain| (both round to bf16, so they
+    differ by an element's ulp) and ||d|| within 1e-2 of ||plain|| (one
+    rounding is ~3e-3). Output a few per cent off throughout, as from a
+    tail tile dropped or left unmasked, fails at any scale."""
+    d, want = got.float() - want.float(), want.float()
+    top = float(want.abs().max())
+    ulps2 = 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    return float(d.abs().max()) <= ulps2 and float(d.norm() / want.norm()) <= 1e-2
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 3e-2)])
@@ -431,8 +448,33 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, atol, bh, bhkv
     assert flash_kernel.launches_by_route[route] == before_route + 1
     assert got.dtype == dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got.float(), attention_ref(q, k, v, **kw).float(),
-                               atol=atol, rtol=0)
+    want = attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    if dtype == torch.bfloat16:
+        assert _within_bf16_scale(got, want)
+
+
+@pytest.mark.parametrize("bh,bhkv,sq", [(64, 8, 2048), (256, 32, 1)])
+def test_flash_bf16_check_fails_a_kernel_without_the_tail_tile(cuda_device, bh, bhkv, sq):
+    """At the VLM's cross-attention shapes (1,600 keys: 12 whole tiles and
+    a 64-key tail) the bf16 check passes the kernel and fails it over the
+    first 1,536 keys, or with the tail tile's 64 padding keys read as
+    zeros, both against the plain version over all 1,600 keys; at unit
+    scale and at the small values of a model's image tokens."""
+    rng = np.random.default_rng(bh + sq)
+    q, k, v = (torch.from_numpy(rng.normal(size=(n, s, 128)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for n, s in ((bh, sq), (bhkv, 1600), (bhkv, 1600)))
+    pad = torch.zeros(bhkv, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    for scale in (1.0, 0.05):
+        vs = (v.float() * scale).to(torch.bfloat16)
+        want = attention_ref(q, k, vs, causal=False)
+        assert _within_bf16_scale(flash_attention(q, k, vs, causal=False), want)
+        dropped = flash_attention(q, k[:, :1536].contiguous(), vs[:, :1536].contiguous(),
+                                  causal=False)
+        unmasked = flash_attention(q, torch.cat([k, pad], 1), torch.cat([vs, pad], 1),
+                                   causal=False)
+        assert not _within_bf16_scale(dropped, want)
+        assert not _within_bf16_scale(unmasked, want)
 
 
 @pytest.mark.parametrize("case", ["hd36", "misaligned", "forced"])
@@ -894,3 +936,147 @@ def test_launcher_in_a_fresh_process_counts_no_retrace(cuda_device, tmp_path):
     assert got["serve_s"] >= 2.0, proc.stdout
     assert got["health"] == "ok", proc.stdout
     assert list_dumps(str(dumps)) == []
+
+
+# ------------------------------------------------ trainers: one seed, one model
+def _trainer_data():
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(1500, 7)).astype(np.float32)
+    labels = (feats[:, 0] + 0.5 * rng.normal(size=1500) > 0).astype(np.float32)
+
+    def unit(x):
+        return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+    tools = unit(rng.normal(size=(60, 384)))
+    rel = np.zeros((300, 60), np.float32)
+    rel[np.arange(300), rng.integers(0, 60, 300)] = 1.0
+    queries = unit(rel @ tools + 0.8 * rng.normal(size=(300, 384)))
+    return feats, labels, queries, tools, rel
+
+
+def _max_apart(a, b):
+    return max(float((a[name].cpu() - w.cpu()).abs().max()) for name, w in b.items())
+
+
+def test_trainers_draw_the_same_model_on_card_and_cpu(cuda_device):
+    """The re-ranker's and the adapter's init, permutations and dropout
+    masks come from a CPU generator: one seed trains the same params on
+    the card as on the CPU (float32 sums apart: within 1e-4), though
+    training moves them far past 1e-4 and another seed lands far away.
+    The adapter runs at lr 1e-4 for 20 epochs, where nothing flips sign
+    (at lr 1e-3 see the next test)."""
+    from repro_torch.core.adapter import (AdapterConfig, init_adapter, mine_triplets,
+                                          train_adapter)
+    from repro_torch.core.reranker import RerankerConfig, init_mlp, train_reranker
+
+    feats, labels, queries, tools, rel = _trainer_data()
+    cfg = RerankerConfig(epochs=8, batch_size=256, seed=3)
+    got = {dev: train_reranker(feats, labels, cfg, device=dev)
+           for dev in (cuda_device, "cpu")}
+    for name, w in got["cpu"][0].items():
+        torch.testing.assert_close(got[cuda_device][0][name].cpu(), w, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got[cuda_device][1], got["cpu"][1], atol=1e-4)
+    assert _max_apart(got["cpu"][0], init_mlp(torch.Generator().manual_seed(3))) > 1e-2
+    other = train_reranker(feats, labels, RerankerConfig(epochs=8, batch_size=256, seed=4),
+                           device="cpu")[0]
+    assert _max_apart(other, got["cpu"][0]) > 1e-2
+
+    triplets = mine_triplets(queries[:240], tools, rel[:240], n_hard=4, seed=0)
+
+    def adapter(seed, dev):
+        acfg = AdapterConfig(batch_size=64, seed=seed, lr=1e-4, epochs=20)
+        return train_adapter(queries[:240], tools, triplets, queries[240:], rel[240:],
+                             config=acfg, device=dev)
+
+    adapted = {dev: adapter(5, dev) for dev in (cuda_device, "cpu")}
+    for name, w in adapted["cpu"][0].items():
+        torch.testing.assert_close(adapted[cuda_device][0][name].cpu(), w, atol=1e-4, rtol=0)
+    assert adapted[cuda_device][1]["val_ndcg"] == pytest.approx(adapted["cpu"][1]["val_ndcg"],
+                                                                abs=1e-4)
+    assert _max_apart(adapted["cpu"][0], init_adapter(torch.Generator().manual_seed(5))) > 1e-3
+    assert _max_apart(adapter(6, "cpu")[0], adapted["cpu"][0]) > 1e-2
+
+
+def test_adapter_card_cpu_gap_at_lr_1e3_is_float_rounding(cuda_device):
+    """At an adapter lr of 1e-3 a few of w1's entries end about 1e-3 apart
+    card to CPU: Adam's normalised step turns a near-zero gradient's
+    rounding noise into a whole step of either sign. The control has the
+    same draws on the CPU alone, with the inputs one float32 ulp apart: its
+    update differs from the CPU run's in the same few entries. The card's
+    update is held within 10x that control's distance, and a run with other
+    draws (seed 6) is farther than the update itself. Distances are
+    ||update - CPU update|| / ||CPU update||, the update being params less
+    the init."""
+    from repro_torch.core.adapter import (AdapterConfig, init_adapter, mine_triplets,
+                                          train_adapter)
+
+    _, _, queries, tools, rel = _trainer_data()
+    triplets = mine_triplets(queries[:240], tools, rel[:240], n_hard=4, seed=0)
+    nudged = np.nextafter(queries, np.float32(np.inf)).astype(np.float32)
+
+    def adapter(qs, seed, dev):
+        acfg = AdapterConfig(batch_size=64, seed=seed, lr=1e-3)
+        return train_adapter(qs[:240], tools, triplets, qs[240:], rel[240:], config=acfg,
+                             device=dev)[0]
+
+    init = init_adapter(torch.Generator().manual_seed(5))
+    cpu = adapter(queries, 5, "cpu")
+    norm = sum(float(((cpu[n] - init[n]) ** 2).sum()) for n in cpu) ** 0.5
+
+    def distance(p):
+        return sum(float(((p[n].cpu() - cpu[n]) ** 2).sum()) for n in cpu) ** 0.5 / norm
+
+    card, control, other = (distance(adapter(queries, 5, cuda_device)),
+                            distance(adapter(nudged, 5, "cpu")), distance(adapter(queries, 6, "cpu")))
+    print(f"adapter lr 1e-3: update moved {_max_apart(cpu, init):.3g} at most; distance to "
+          f"the CPU run: card {card:.3g}, CPU with inputs one ulp apart {control:.3g}, "
+          f"seed 6 {other:.3g}")
+    assert 0.0 < control and card <= 10 * control and other > 1.0
+
+
+# ------------------------------------- the pool's MoE, VLM and codebook models
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama-3.2-vision-90b", "musicgen-medium"])
+def test_pool_family_with_kernels_equals_plain_on_the_card(cuda_device, arch):
+    """Reduced model, float32: prefill + 4 decode steps with the kernels
+    (flash on the fma route; the VLM's cross layers with causal=False in
+    prefill and in every decode step) against the same with the plain
+    versions, every cache entry too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, model as M
+    from repro_torch.models.config import reduced
+
+    cfg = reduced(get_config(arch))
+    params = M.open_cross_gates(cfg, M.attention_at_d_model_fan_in(
+        cfg, M.init(cfg, torch.Generator(cuda_device).manual_seed(0), cuda_device)))
+    rng = np.random.default_rng(0)
+    shape = (2, 40) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(cuda_device)
+    img = torch.from_numpy(rng.normal(size=(2, cfg.n_image_tokens, cfg.d_model))
+                           .astype(np.float32)).to(cuda_device)
+
+    def run():
+        batch = {"tokens": toks[:, :36]}
+        if cfg.cross_attn_every:
+            batch["image_embeds"] = img
+        logits, cache = M.prefill(cfg, params, batch, max_cache_len=48)
+        outs = [logits]
+        for pos in range(36, 40):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          {"token": toks[:, pos:pos + 1], "pos": pos})
+            outs.append(logits)
+        return outs + [cache[key] for key in sorted(cache)]
+
+    before = flash_kernel.launches
+    with_kernels = run()
+    torch.cuda.synchronize()
+    n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
+    assert flash_kernel.launches - before == cfg.n_layers + 4 * n_cross
+    plain = layers.flash_attention
+    layers.flash_attention = functools.partial(flash_attention, use_kernel=False)
+    try:
+        with_plain = run()
+    finally:
+        layers.flash_attention = plain
+    for a, b in zip(with_kernels, with_plain):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)

@@ -10,14 +10,20 @@ within 0.005), the outcome-log count, the index stats, the route cache's
 hit rate and counters, the learning plan and each stage's decision, the
 live stages and the count of exported traces.
 
+Every model family runs behind the launcher: `--arch` dbrx-132b,
+arctic-480b, llama-3.2-vision-90b and musicgen-medium at `--smoke` print
+the JAX launcher's results too (codebook prompts [1, 32, 4], zero image
+embeddings, as the reference feeds them).
+
 `generate`, the pool's per-request prefill and greedy decode, is held
-against the JAX `prefill` + `decode_step` sequence on reduced hymba-1.5b and
-qwen2.5-3b in float32, the parameters carried across with
-`repro_torch.convert`: equal greedy tokens and every step's logits within
-the tolerances of `tests/test_torch_models.py` (1e-4 attention-only, 1e-3
-with the SSD scan). The families the port does not run raise
-`NotImplementedError` before any work, and a normal exit leaves no obs
-server port or telemetry thread alive.
+against the JAX `prefill` + `decode_step` sequence on reduced hymba-1.5b,
+qwen2.5-3b, dbrx-132b, arctic-480b, llama-3.2-vision-90b (gates opened,
+zero image embeddings, as the launcher feeds) and musicgen-medium (frames
+of 4 codebook ids)
+in float32, the parameters carried across with `repro_torch.convert`:
+equal greedy tokens and every step's logits within the tolerances of
+`tests/test_torch_models.py` (1e-4 attention-only, 1e-3 with the SSD
+scan). A normal exit leaves no obs server port or telemetry thread alive.
 """
 import contextlib
 import io
@@ -85,50 +91,62 @@ def test_launcher_prints_the_jax_results(backend, wired, tmp_path):
     assert ours == theirs
 
 
+@pytest.mark.parametrize("arch", ["arctic-480b", "dbrx-132b", "llama-3.2-vision-90b",
+                                  "musicgen-medium"])
+def test_launcher_prints_the_jax_results_for_each_family(arch):
+    argv = SMALL + ["--arch", arch]
+    theirs = _results(_run(jax_serve.main, argv))
+    ours = _results(_run(serve.main, argv + ["--device", "cpu"]))
+    assert {"r5", "outcomes", "index", "decisions"} <= set(ours) and ours == theirs
+
+
+GENERATE_CASES = {"hymba-1.5b": 1e-3, "qwen2.5-3b": 1e-4, "dbrx-132b": 1e-4,
+                  "arctic-480b": 1e-4, "llama-3.2-vision-90b": 1e-4, "musicgen-medium": 1e-4}
+
+
 @pytest.fixture(scope="module")
 def pool_pairs():
-    """name -> (port cfg, JAX cfg, JAX params, port params), reduced, float32."""
+    """name -> (port cfg, JAX cfg, JAX params, port params), reduced, float32;
+    the VLM's gates opened."""
     out = {}
-    for name in ("hymba-1.5b", "qwen2.5-3b"):
+    for name in GENERATE_CASES:
         cfg, jcfg = reduced(ARCHITECTURES[name]), jax_reduced(JAX_ARCHITECTURES[name])
-        jp = M.attention_at_d_model_fan_in(cfg, JM.init(jcfg, jax.random.PRNGKey(0)))
+        jp = M.open_cross_gates(cfg, M.attention_at_d_model_fan_in(
+            cfg, JM.init(jcfg, jax.random.PRNGKey(0))))
         out[name] = (cfg, jcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), "cpu"))
     return out
 
 
-@pytest.mark.parametrize("arch,tol", [("hymba-1.5b", 1e-3), ("qwen2.5-3b", 1e-4)])
+@pytest.mark.parametrize("arch,tol", list(GENERATE_CASES.items()))
 def test_generate_matches_the_jax_sequence(pool_pairs, arch, tol):
     cfg, jcfg, jp, tp = pool_pairs[arch]
     n_new = 6
-    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, serve.PROMPT_LEN))
+    rng = np.random.default_rng(0)
+    shape = (1, serve.PROMPT_LEN) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    prompt = rng.integers(0, cfg.vocab_size, shape)
+    jbatch = {"tokens": jnp.asarray(prompt, jnp.int32)}
+    if cfg.cross_attn_every:  # the JAX launcher's zero image embeddings
+        jbatch["image_embeds"] = jnp.zeros((1, cfg.n_image_tokens, cfg.d_model))
     tokens, logits = serve.generate(cfg, tp, torch.from_numpy(prompt), n_new)
     # the JAX launcher's sequence
-    jl, cache = JM.prefill(jcfg, jp, {"tokens": jnp.asarray(prompt, jnp.int32)},
-                           max_cache_len=serve.MAX_CACHE_LEN)
+    jl, cache = JM.prefill(jcfg, jp, jbatch, max_cache_len=serve.MAX_CACHE_LEN)
     jsteps = [jl[:, -1:]]
     tok = jnp.argmax(jsteps[-1], axis=-1).astype(jnp.int32)
-    jtokens = [int(tok[0, 0])]
-    for step in range(n_new - 1):
+    jtokens = []
+    for step in range(n_new):
+        jtokens.append(np.asarray(tok).reshape(-1).tolist() if cfg.n_codebooks
+                       else int(tok[0, 0]))
+        if step == n_new - 1:
+            break
         jl, cache = JM.decode_step(jcfg, jp, cache, {
             "token": tok, "pos": jnp.asarray(serve.PROMPT_LEN + step, jnp.int32)})
         jsteps.append(jl[:, -1:])
         tok = jnp.argmax(jsteps[-1], axis=-1).astype(jnp.int32)
-        jtokens.append(int(tok[0, 0]))
     assert tokens == jtokens and len(tokens) == n_new
     assert len(logits) == n_new
     for step, (got, ref) in enumerate(zip(logits, jsteps)):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=tol, rtol=tol,
                                    err_msg=f"step {step}")
-
-
-@pytest.mark.parametrize("arch", sorted(
-    name for name, cfg in ARCHITECTURES.items()
-    if cfg.arch_type not in ("dense", "ssm") or cfg.cross_attn_every or cfg.n_codebooks))
-def test_unported_families_raise_before_any_work(arch):
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out), pytest.raises(NotImplementedError, match="item 8"):
-        serve.main(["--arch", arch, "--device", "cpu", "--smoke"])
-    assert out.getvalue() == ""  # nothing built, nothing served
 
 
 def test_without_a_card_the_launcher_raises(monkeypatch):

@@ -9,10 +9,15 @@ batcher through `dense`. Greedy tokens, tools, table versions and the
 admission and retirement ticks must be identical. Reduced qwen2.5-3b has
 full attention; reduced hymba-1.5b (window cut to 16, prompts longer than
 it, as the JAX batcher needs: ROADMAP.md queue 3) runs both kernels'
-plain versions in every prefill. As in `tests/test_torch_models.py`, the
-attention projections are rescaled to a d_model fan-in on the JAX tree
-(`M.attention_at_d_model_fan_in`) so that float32 summation order cannot
-flip a near-tie.
+plain versions in every prefill. Reduced dbrx-132b runs its decode ticks
+through the experts at T = n_slots tokens (pad slots take capacity, as in
+the reference), reduced llama-3.2-vision-90b prefills each request with
+zero image embeddings and splices its image K/V per slot, and reduced
+musicgen-medium's prompts and tokens are frames of 4 codebook ids. As in
+`tests/test_torch_models.py`, the attention projections are rescaled to a
+d_model fan-in on the JAX tree (`M.attention_at_d_model_fan_in`) so that
+float32 summation order cannot flip a near-tie, and the VLM's gates are
+opened (`M.open_cross_gates`).
 """
 import jax
 import numpy as np
@@ -42,13 +47,17 @@ CPU = "cpu"
 POOLS = {
     "qwen": ("qwen2.5-3b", {}, (4, 12), 32),
     "hymba": ("hymba-1.5b", dict(sliding_window=16), (18, 30), 48),
+    "dbrx": ("dbrx-132b", {}, (4, 12), 32),
+    "vlm": ("llama-3.2-vision-90b", {}, (4, 12), 32),
+    "musicgen": ("musicgen-medium", {}, (4, 12), 32),
 }
 
 
 def _models(name):
     arch, over, _, _ = POOLS[name]
     cfg, jcfg = reduced(ARCHITECTURES[arch], **over), jax_reduced(JAX_ARCHITECTURES[arch], **over)
-    jp = M.attention_at_d_model_fan_in(cfg, JM.init(jcfg, jax.random.PRNGKey(0)))
+    jp = M.open_cross_gates(cfg, M.attention_at_d_model_fan_in(
+        cfg, JM.init(jcfg, jax.random.PRNGKey(0))))
     return cfg, jcfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), CPU)
 
 
@@ -70,7 +79,8 @@ def _requests(cfg, bench, lengths, n=7, max_new=5, seed=0):
     rng = np.random.default_rng(seed)
     out = []
     for i in range(n):
-        prompt = rng.integers(0, cfg.vocab_size, (int(rng.integers(*lengths)),)).astype(np.int32)
+        shape = (int(rng.integers(*lengths)),) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+        prompt = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
         out.append(dict(request_id=i, prompt=prompt, max_new_tokens=max_new,
                         query_tokens=bench.query_tokens[i]))
     return out
@@ -94,6 +104,8 @@ def test_batcher_with_router_matches_jax(small_bench, pool):
         t = tdone[rid]
         assert t.generated == j.generated, rid
         assert len(t.generated) == t.max_new_tokens
+        if cfg.n_codebooks:
+            assert all(len(tok) == cfg.n_codebooks for tok in t.generated)
         assert t.tools == j.tools and len(t.tools) == 5
         assert t.route_result.table_version == j.route_result.table_version
         assert (t.admitted_at_tick, t.finished_at_tick) == (j.admitted_at_tick,
