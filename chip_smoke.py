@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, model pool (every family),
-offline OATS pipeline, online refinement loop, learning plane, IVF backend
-and serve launcher once on one NVIDIA card.
+offline OATS pipeline, online refinement loop, learning plane, IVF backend,
+serve launcher and training path once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -158,6 +158,24 @@ package `repro`. Phases, each of which fails the run by raising:
                llama-3.2-vision-90b at --smoke) on the card and the CPU,
                printing the same results; each family's params freed
                before the next;
+ 13. train   — (run before 7) the kernel ops' repair: a reduced model's
+               forward on the card with grad-requiring params raises (the
+               kernels have no backward); the reduced hymba, dbrx and VLM
+               `loss_fn` gradients on the card within 1e-4 of the CPU's
+               norm, leaf by leaf (1e-3 with the scan); then
+               `repro_torch.launch.train.main` in process at full-width,
+               full-depth hymba-1.5b, bf16 (TRAIN_ARGS): one step from the
+               reference's init as the launcher draws it (its gradient
+               norm, ~3e18, recorded: the attention fan-in fault), then
+               from the init with wq, wk, wv at a d_model fan-in with AdamW
+               (`--optimizer auto`) and with Adafactor: the loss must fall;
+               step ms p50/p99 between card syncs, tokens/s, peak memory,
+               model-FLOPs share (6 N tokens / step at 989 TFLOP/s) and the
+               idle share of TRAIN_PROFILE_STEPS profiled steps; then a
+               Trainer (reduced hymba, bf16) saved after two steps and
+               restored into a fresh one, whose steps 3 and 4 must be
+               within 1e-3 of the uninterrupted run's. No kernel launches
+               on this path (every `launches_by_path` has "train": 0);
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -304,6 +322,28 @@ FAMILY_LAUNCH = ["--backend", "fused", "--requests", "8", "--route-batch", "8",
 FAMILY_LAUNCH_CARD = {"musicgen-medium": (), "dbrx-132b": ("--smoke",),
                       "llama-3.2-vision-90b": ("--smoke",)}  # full dbrx / llama: 264 / 180 GB
 BF16_LOGIT_ATOL = 3e-2  # tests/test_torch_bf16.py: 3e-2 + two bf16 ulps of the row's max
+# the training path (phase 13): `repro_torch.launch.train.main` in process,
+# as a user runs it, at full-width, full-depth hymba-1.5b (bf16), once with
+# each optimizer; batch and length fit 80 GB with AdamW's float32 moments
+# and the plain attention's [B, H, S, S] tensors kept for backward. The
+# reference's init does not train: its attention fan-in (ROADMAP.md queue
+# 3) makes the first gradient norm ~3e18 at 32 layers, so the clip leaves
+# no update above the optimizers' eps or half a bf16 ulp, and larger lrs
+# diverge (scripts/train_lr_sweep.py). So the measured runs start from the
+# init with wq, wk, wv at a d_model fan-in (`M.attention_at_d_model_fan_in`,
+# as the pool's phase serves), and one short run from the init as it is
+# records the fault
+TRAIN_ARGS = ["--arch", "hymba-1.5b", "--batch-size", "2", "--seq-len", "1024",
+              "--steps", "12", "--lr", "3e-3"]
+TRAIN_REFERENCE_STEPS = 1  # the run from the reference's init: its first gradient norm
+TRAIN_CARD_ARGS = ()  # more arguments of the card runs (a CPU rehearsal adds --smoke)
+TRAIN_OPTIMIZERS = ("auto", "adafactor")  # auto: AdamW below 3e10 params
+TRAIN_PROFILE_STEPS = 2  # steps under torch.profiler a run, for the idle share
+# the save / restore leg: a Trainer saved after 2 steps and restored into a
+# fresh one, whose steps 3 and 4 must follow the uninterrupted run's; reduced
+# hymba-1.5b in bf16 (the checkpoint goes through zlib at ~13 MB/s: 2 layers
+# at full width take 21 s to save, the full model would take minutes)
+TRAIN_RESUME_OPT, TRAIN_RESUME_ATOL = "adafactor", 1e-3
 
 
 def log(*parts) -> None:
@@ -477,9 +517,10 @@ def capture_prefill(cfg, params, tokens, wanted):
         def wrapper(*args, **kwargs):
             i = calls[key]
             calls[key] += 1
-            if i in wanted:
+            if i in wanted:  # the kernel's arguments: the op's use_kernel is not one
                 captured[key][i] = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
-                                          for a in args), dict(kwargs))
+                                          for a in args),
+                                    {k: v for k, v in kwargs.items() if k != "use_kernel"})
             return fn(*args, **kwargs)
         return wrapper
 
@@ -503,10 +544,12 @@ def plain_kernels():
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import layers, ssm
 
+    def plain(fn):  # the layers pass use_kernel=None themselves: override it
+        return lambda *args, **kwargs: fn(*args, **{**kwargs, "use_kernel": False})
+
     originals = layers.flash_attention, ssm.ssd_ops
-    layers.flash_attention = functools.partial(flash_ops.flash_attention, use_kernel=False)
-    ssm.ssd_ops = types.SimpleNamespace(
-        ssd_scan=functools.partial(ssd_ops.ssd_scan, use_kernel=False))
+    layers.flash_attention = plain(flash_ops.flash_attention)
+    ssm.ssd_ops = types.SimpleNamespace(ssd_scan=plain(ssd_ops.ssd_scan))
     try:
         yield
     finally:
@@ -1846,7 +1889,8 @@ def recorded_model_calls(flash_calls, moe_inputs):
     flash, moe = layers.flash_attention, layers.moe_block
 
     def flash_wrapper(q, k, v, **kw):
-        flash_calls.append(((q, k, v), kw))
+        # the kernel's arguments: the op's use_kernel is not one
+        flash_calls.append(((q, k, v), {n: x for n, x in kw.items() if n != "use_kernel"}))
         return flash(q, k, v, **kw)
 
     def moe_wrapper(p, x, cfg):
@@ -2301,6 +2345,273 @@ def families_phase(dev, card, gen, check_flash, make_router, db_native, bench, a
         out["families"][arch] = rec
         log(f"families {arch}: {rec['seconds']:.1f} s, peak device memory "
             f"{rec['peak_memory_gb']:.1f} GB; params and caches freed")
+    return out
+
+
+def train_resume_config():
+    """The save / restore leg's model: reduced hymba-1.5b (2 layers, d_model
+    256) in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.config import reduced
+
+    return reduced(get_config("hymba-1.5b"), dtype="bfloat16")
+
+
+def train_phase(dev, card):
+    """Phase 13: the training path on the card. The kernel ops' repair (a
+    reduced model's forward with grad-requiring params raises), the reduced
+    models' `loss_fn` gradients against the CPU's (`scenarios.GRAD_CASES`),
+    `launch.train.main` at full width: TRAIN_REFERENCE_STEPS from the
+    reference's init (recorded, not held), then each TRAIN_OPTIMIZERS entry
+    from the init at a d_model fan-in (step ms between card syncs, tokens/s,
+    peak memory, model-FLOPs share, the idle share of TRAIN_PROFILE_STEPS
+    profiled steps; the loss must fall), and a save and a restore into a
+    fresh Trainer whose next steps follow the uninterrupted run. No kernel may launch: training takes the
+    plain attention and scan. Returns the summary; raises on any failed
+    check."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import scenarios
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_data import LMDataConfig, synthetic_lm_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced
+    from repro_torch.optim.base import tree_map
+    from repro_torch.training import trainer as trainer_mod
+    from repro_torch.training.train_step import TrainConfig
+
+    out = {"card": card, "leg_seconds": {}}
+    t_leg = time.perf_counter()
+
+    def leg_done(name):
+        nonlocal t_leg
+        out["leg_seconds"][name] = time.perf_counter() - t_leg
+        t_leg = time.perf_counter()
+
+    # ---- (a) the repair: the kernels have no backward, and on the card
+    # forward picks them; a grad-requiring param must raise, not lose its grad
+    small = reduced(get_config("hymba-1.5b"), sliding_window=16)
+    params = tree_map(lambda t: t.to(dev).requires_grad_(),
+                      M.init(small, torch.Generator().manual_seed(0), "cpu"))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, small.vocab_size, (2, 40))).to(dev)
+    try:
+        M.forward(small, params, {"tokens": tokens})
+    except ValueError as err:
+        if "no backward" not in str(err):
+            raise
+        out["repair_error"] = str(err)
+    else:
+        raise AssertionError("train: forward with grad-requiring params did not raise")
+    del params
+    log(f"train: forward on {dev} with grad-requiring params raises: {out['repair_error']}")
+    leg_done("repair")
+
+    # ---- (b) the reduced models' gradients, card against CPU, leaf by leaf
+    out["grad_gaps"] = {}
+    for arch, (overrides, tol) in scenarios.GRAD_CASES.items():
+        gaps = scenarios.grad_gaps(arch, dev, overrides)
+        worst = max(gaps, key=gaps.get)
+        out["grad_gaps"][arch] = dict(max=gaps[worst], leaf=worst, tol=tol, leaves=len(gaps))
+        if not gaps[worst] <= tol:
+            raise AssertionError(f"train: {arch} grad {worst} is {gaps[worst]:.3g} of the "
+                                 f"CPU's norm away (tolerance {tol})")
+    log("train: loss_fn grads of the reduced models on the card against the CPU, max "
+        "||g_card - g_cpu|| / ||g_cpu|| over leaves " + json.dumps(
+            {a: f"{g['max']:.3g} ({g['leaf']}, tol {g['tol']})"
+             for a, g in out["grad_gaps"].items()}))
+    leg_done("grads")
+
+    # ---- (c) the launcher at full width, each optimizer
+    class TimedTrainer(trainer_mod.Trainer):
+        """The launcher's Trainer, its step timed between card syncs; from
+        the init at a d_model fan-in unless `rescale` is False."""
+        last, rescale = None, True
+
+        def __init__(self, cfg, *args, **kwargs):
+            t0 = time.perf_counter()
+            super().__init__(cfg, *args, **kwargs)
+            if TimedTrainer.rescale:
+                with torch.no_grad():
+                    params = M.attention_at_d_model_fan_in(cfg, self.params)
+                self.params = tree_map(lambda p: p.detach().requires_grad_(), params)
+            self.init_s = time.perf_counter() - t0
+            step_fn, self.step_ms = self.step_fn, []
+
+            def timed(*step_args):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = step_fn(*step_args)
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - t) * 1e3)
+                return res
+
+            self.step_fn = timed
+            TimedTrainer.last = self
+
+    # every run draws one init (one seed, one config): drawn once on the host
+    # (~15 s for 1.59 B params) and copied to the card by each Trainer
+    drawn, draw = {}, M.init
+
+    def draw_once(cfg, generator, device):
+        key = (cfg, generator.initial_seed(), str(device))
+        if key not in drawn:
+            drawn[key] = draw(cfg, generator, device)
+        return drawn[key]
+
+    def run_launcher(args):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_train.Trainer, M.init = TimedTrainer, draw_once
+        try:
+            t0 = time.perf_counter()
+            history = launch_train.main(args)
+            wall_s = time.perf_counter() - t0
+        finally:
+            launch_train.Trainer, M.init = trainer_mod.Trainer, draw
+        tr, TimedTrainer.last = TimedTrainer.last, None
+        return history, wall_s, tr, torch.cuda.max_memory_allocated() / 1e9
+
+    argv = list(TRAIN_ARGS) + list(TRAIN_CARD_ARGS) + ["--device", str(dev)]
+    batch_size = int(argv[argv.index("--batch-size") + 1])
+    seq_len = int(argv[argv.index("--seq-len") + 1])
+    # the launcher as it is, from the reference's init: recorded, not held
+    TimedTrainer.rescale = False
+    steps_at = argv.index("--steps") + 1
+    ref_args = argv[:steps_at] + [str(TRAIN_REFERENCE_STEPS)] + argv[steps_at + 1:]
+    history, wall_s, tr, peak_gb = run_launcher(ref_args + ["--optimizer", "auto"])
+    TimedTrainer.rescale = True
+    out["reference_init"] = dict(
+        argv=ref_args, history=[{k: m[k] for k in ("step", "loss", "ce", "grad_norm")}
+                                for m in history], wall_s=wall_s, peak_memory_gb=peak_gb)
+    if not all(np.isfinite(m["loss"]) for m in history):
+        raise AssertionError(f"train: non-finite loss from the reference's init: {history}")
+    log(f"train (the reference's init, as the launcher draws it; AdamW, "
+        f"{TRAIN_REFERENCE_STEPS} step(s)): grad norm " + ", ".join(
+            f"{m['grad_norm']:.4g}" for m in history) + ", loss " + " -> ".join(
+            f"{m['loss']:.4f}" for m in history) + " (the attention fan-in fault, ROADMAP.md "
+        f"queue 3: not held); {wall_s:.1f} s, the init's draws {tr.init_s:.1f} s")
+    del tr
+    leg_done("reference_init")
+    out["runs"] = {}
+    for opt in TRAIN_OPTIMIZERS:
+        history, wall_s, tr, peak_gb = run_launcher(argv + ["--optimizer", opt])
+        cfg = tr.cfg
+        first, last = history[0]["loss"], history[-1]["loss"]
+        if not (np.isfinite(last) and last < first):
+            raise AssertionError(f"train ({opt}): the loss did not fall: {first} -> {last}")
+        step_ms = list(tr.step_ms)  # the run's steps; the profiled ones come after
+        steady = step_ms[1:]  # the first step loads cuBLAS and fills the allocator
+        tokens_per_step = batch_size * seq_len
+        p50 = float(np.percentile(steady, 50))
+        flops = 6 * cfg.param_count() * tokens_per_step
+        # a few more steps under the profiler: device busy against the host
+        # clock of the same steps (the profiler adds host overhead)
+        data = synthetic_lm_batches(cfg, LMDataConfig(batch_size=batch_size, seq_len=seq_len,
+                                                      seed=1))
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(data).items()}
+                   for _ in range(TRAIN_PROFILE_STEPS)]
+        torch.cuda.synchronize()
+        wall = []
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for batch in batches:
+                t = time.perf_counter()
+                tr.params, tr.opt_state, _ = tr.step_fn(tr.params, tr.opt_state, batch)
+                wall.append((time.perf_counter() - t) * 1e3)
+        per_kernel = sorted(
+            ((e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+            key=lambda kv: -kv[1])
+        busy = sum(ms for _, ms in per_kernel)
+        rec = dict(
+            optimizer=type(tr.opt_state).__name__, model=cfg.name, dtype=cfg.dtype,
+            layers=cfg.n_layers, params=cfg.param_count(), batch=batch_size, seq_len=seq_len,
+            steps=len(step_ms), argv=argv + ["--optimizer", opt],
+            history=[{k: m[k] for k in ("step", "loss", "ce", "grad_norm")} for m in history],
+            loss_first=first, loss_last=last, init_s=tr.init_s, wall_s=wall_s,
+            step_ms=step_ms, step_ms_p50=p50, step_ms_p99=float(np.percentile(steady, 99)),
+            tokens_per_s=tokens_per_step / (p50 / 1e3),
+            tokens_per_s_wall=tokens_per_step * len(step_ms) / wall_s,
+            flops_share=flops / (p50 / 1e3) / PEAK_BF16_FLOP_PER_S, peak_memory_gb=peak_gb,
+            profiled=dict(steps=len(wall), wall_ms=float(sum(wall)), busy_ms=busy,
+                          idle_share=1 - busy / float(sum(wall)),
+                          top_kernels_ms={k[:80]: v for k, v in per_kernel[:8]}))
+        out["runs"][opt] = rec
+        log(f"train ({opt} -> {rec['optimizer']}): {cfg.name} {cfg.n_layers} layers "
+            f"{cfg.dtype}, {rec['params']:,} params, batch {batch_size} x {seq_len} tokens, "
+            f"wq, wk, wv at a d_model fan-in, argv {' '.join(rec['argv'])}: loss "
+            + " -> ".join(f"{m['loss']:.4f}" for m in history) + f"; step ms p50 "
+            f"{p50:.1f} p99 {rec['step_ms_p99']:.1f} (first {step_ms[0]:.1f}), "
+            f"{rec['tokens_per_s']:.0f} tokens/s ({rec['tokens_per_s_wall']:.0f} with the "
+            f"host's data and init, {wall_s:.1f} s; init {tr.init_s:.1f} s), model-FLOPs "
+            f"share {rec['flops_share']:.4f} of 989 TFLOP/s, peak device memory "
+            f"{peak_gb:.1f} GB; profiled {len(wall)} steps: host clock {sum(wall):.1f} ms, "
+            f"device busy {busy:.1f} ms, idle share {rec['profiled']['idle_share']:.4f}; top "
+            "kernels ms " + json.dumps({k[:50]: round(v, 1) for k, v in per_kernel[:6]})
+            + f"; on {card}")
+        del tr, batches
+        leg_done(f"run_{opt}")
+    drawn.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) save mid-run, restore into a fresh Trainer, continue
+    cfg = train_resume_config()
+    lr = float(argv[argv.index("--lr") + 1])
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        tcfg = trainer_mod.TrainerConfig(
+            steps=2, log_every=1, ckpt_dir=ckpt_dir,
+            train=TrainConfig(learning_rate=lr, optimizer=TRAIN_RESUME_OPT, total_steps=4))
+
+        def data(skip=0):
+            it = synthetic_lm_batches(cfg, LMDataConfig(batch_size=batch_size,
+                                                        seq_len=seq_len // 4))
+            for _ in range(skip):
+                next(it)
+            return it
+
+        quiet = lambda _line: None  # noqa: E731
+        a = trainer_mod.Trainer(cfg, tcfg, device=dev)
+        stream = data()
+        a.fit(stream, log=quiet)
+        t0 = time.perf_counter()
+        a.save()
+        save_s = time.perf_counter() - t0
+        ckpt_mb = sum(f.stat().st_size for f in Path(ckpt_dir).glob("*.ckpt")) / 1e6
+        a.fit(stream, log=quiet)
+        uninterrupted = a.history[2:]
+        del a
+        b = trainer_mod.Trainer(cfg, dataclasses.replace(tcfg, seed=1), device=dev)
+        t0 = time.perf_counter()
+        b.restore()
+        restore_s = time.perf_counter() - t0
+        b.fit(data(skip=2), log=quiet)
+        gaps = [abs(x["loss"] - y["loss"]) for x, y in zip(b.history, uninterrupted)]
+        if [m["step"] for m in b.history] != [3, 4] or not max(gaps) <= TRAIN_RESUME_ATOL:
+            raise AssertionError(f"train: the restored trainer's steps {b.history} against "
+                                 f"{uninterrupted}")
+        del b
+    out["resume"] = dict(layers=cfg.n_layers, d_model=cfg.d_model, optimizer=TRAIN_RESUME_OPT,
+                         save_s=save_s, restore_s=restore_s, checkpoint_mb=ckpt_mb,
+                         loss_gaps=gaps, losses=[m["loss"] for m in uninterrupted])
+    log(f"train: saved after step 2 ({cfg.name}, {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {TRAIN_RESUME_OPT}; {ckpt_mb:.1f} MB in {save_s:.1f} s), restored into "
+        f"a fresh Trainer in {restore_s:.1f} s: steps 3-4 losses "
+        + ", ".join(f"{m['loss']:.5f}" for m in uninterrupted) + " uninterrupted, |d| "
+        + ", ".join(f"{g:.2e}" for g in gaps) + f" (tolerance {TRAIN_RESUME_ATOL})")
+    leg_done("resume")
+    log("train: seconds by leg " + json.dumps({k: round(v, 1)
+                                               for k, v in out["leg_seconds"].items()}))
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3301,6 +3612,18 @@ def main() -> int:
     if families["pool"]["flash_routes"]["fma"]:
         raise AssertionError("families: a full-width bf16 leg launched the fma route")
 
+    # ---------------------------------------------------------------- 13. train
+    # the training path, as a user runs it; no kernel may launch on it
+    for mod in kernel_modules.values():
+        mod.launches = 0
+    t_train = time.perf_counter()
+    train = train_phase(dev, card)
+    train["seconds"] = time.perf_counter() - t_train
+    train["launches"] = {name: mod.launches for name, mod in kernel_modules.items()}
+    log(f"train path: {train['seconds']:.1f} s, launches " + json.dumps(train["launches"]))
+    if any(train["launches"].values()):
+        raise AssertionError(f"the training path launched a kernel: {train['launches']}")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -3589,7 +3912,7 @@ def main() -> int:
         launches=(main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches
                   + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]
                   + launch["launches"]["topk_sim"] + families["pool"]["launches"]["topk"]
-                  + families["launch"]["launches"]["topk"]),
+                  + families["launch"]["launches"]["topk"] + train["launches"]["topk_sim"]),
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -3603,7 +3926,8 @@ def main() -> int:
                           "ivf": later_paths["ivf"]["launches"],
                           "launch": launch["launches"]["topk_sim"],
                           "families": families["pool"]["launches"]["topk"],
-                          "families_launch": families["launch"]["launches"]["topk"]},
+                          "families_launch": families["launch"]["launches"]["topk"],
+                          "train": train["launches"]["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
@@ -3617,6 +3941,7 @@ def main() -> int:
         name="topk_sim (select route)", route="cuda",
         source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=pipe_routes["select"],
+        launches_by_path={"pipeline": pipe_routes["select"], "train": train["launches"]["topk_sim"]},
         max_abs_err=max(c["max_abs_err"] for c in checks if c["route"] == "select"),
         ms=sel_ms, plain_ms=sel_plain, bound_ms=sel_bound, bound_by=sel_by, library_ms=sel_lib,
         shape=[64, table_native.shape[0], sel_q.shape[1], sel_k], rounds_ms=sel_rounds,
@@ -3629,11 +3954,13 @@ def main() -> int:
         replaces="src/repro/kernels/flash_attention/kernel.py:112",
         launches=(pool_launches["flash_attention"] + launch["launches"]["flash_attention"]
                   + families["pool"]["launches"]["flash"]
-                  + families["launch"]["launches"]["flash"]),
+                  + families["launch"]["launches"]["flash"]
+                  + train["launches"]["flash_attention"]),
         launches_by_path={"pool": pool_launches["flash_attention"],
                           "launch": launch["launches"]["flash_attention"],
                           "families": families["pool"]["launches"]["flash"],
-                          "families_launch": families["launch"]["launches"]["flash"]},
+                          "families_launch": families["launch"]["launches"]["flash"],
+                          "train": train["launches"]["flash_attention"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
@@ -3648,9 +3975,11 @@ def main() -> int:
     ), dict(
         name="ssd_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:102",
-        launches=pool_launches["ssd_scan"] + launch["launches"]["ssd_scan"],
+        launches=(pool_launches["ssd_scan"] + launch["launches"]["ssd_scan"]
+                  + train["launches"]["ssd_scan"]),
         launches_by_path={"pool": pool_launches["ssd_scan"], "launch": launch["launches"]["ssd_scan"],
-                          "families": 0, "families_launch": 0},
+                          "families": 0, "families_launch": 0,
+                          "train": train["launches"]["ssd_scan"]},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
@@ -3669,7 +3998,8 @@ def main() -> int:
                                  seconds=pipe_s),
                    loop=loop, learn=later_paths["learn"]["summary"],
                    ivf=later_paths["ivf"]["summary"], launch=launch,
-                   families={k: v for k, v in families.items() if k != "cross_shapes"})
+                   families={k: v for k, v in families.items() if k != "cross_shapes"},
+                   train=train)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

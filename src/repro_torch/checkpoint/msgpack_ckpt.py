@@ -8,11 +8,17 @@ Arrays are stored as {"__array__": [dtype, shape, index]} leaves referencing
 the buffer list. Step-numbered files + a LATEST pointer give atomic-ish
 rotation.
 
-Two dependencies of the reference are replaced:
+Three dependencies of the reference are replaced:
 
 * `jax.tree.map` by `_to_host`, a walk over dicts (keys sorted, as a JAX
-  pytree orders them), lists and tuples that brings every leaf to host
-  numpy (`.detach().cpu().numpy()` for tensors);
+  pytree orders them), lists and tuples (a NamedTuple, such as an
+  optimizer state, becomes a list in its field order) that brings every
+  leaf to host numpy (`.detach().cpu().numpy()` for tensors);
+* numpy's `bfloat16` (from `ml_dtypes`, which the port does not need):
+  a bfloat16 tensor is written as its 16-bit patterns under the dtype name
+  "bfloat16", as the JAX package writes a bf16 array, and a "bfloat16"
+  buffer is read back as a `torch.bfloat16` tensor on the CPU (every other
+  leaf comes back as a numpy array);
 * the `msgpack` package by `packb` / `unpackb` below, which cover exactly
   the types a checkpoint holds: dict, list, tuple, str, bytes, int, float,
   bool and None, with `use_bin_type=True` semantics (str as the str family,
@@ -231,6 +237,8 @@ def _to_host(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return [_to_host(v) for v in tree]
     if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:  # numpy has no bfloat16: keep the tensor
+            return tree.detach().cpu()
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
 
@@ -240,6 +248,9 @@ def _encode(tree: Any, buffers: list) -> Any:
         return {k: _encode(v, buffers) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_encode(v, buffers) for v in tree]
+    if isinstance(tree, torch.Tensor):  # bfloat16, from _to_host
+        buffers.append(tree.contiguous().view(torch.int16).numpy().tobytes())
+        return {_MARKER: ["bfloat16", list(tree.shape), len(buffers) - 1]}
     arr = np.asarray(tree)
     buffers.append(arr.tobytes())
     return {_MARKER: [str(arr.dtype), list(arr.shape), len(buffers) - 1]}
@@ -249,6 +260,9 @@ def _decode(tree: Any, buffers: list) -> Any:
     if isinstance(tree, dict):
         if _MARKER in tree:
             dtype, shape, idx = tree[_MARKER]
+            if dtype == "bfloat16":
+                bits = np.frombuffer(buffers[idx], dtype=np.int16).reshape(shape).copy()
+                return torch.from_numpy(bits).view(torch.bfloat16)
             return np.frombuffer(buffers[idx], dtype=dtype).reshape(shape).copy()
         return {k: _decode(v, buffers) for k, v in tree.items()}
     if isinstance(tree, list):

@@ -1,1 +1,2 @@
-"""Synthetic MetaTool/ToolBench-like benchmarks (copy of `repro.data`)."""
+"""Synthetic MetaTool/ToolBench-like benchmarks and the synthetic LM token
+pipeline (copies of `repro.data`)."""

@@ -6,7 +6,9 @@ path: CPU tensors take the plain version (`ref.ssd_scan_ref`), CUDA tensors
 the hand-written kernel (`kernel.ssd_scan_cuda`), anything else raises. A
 CUDA tensor reaches the plain version only when the caller passes
 `use_kernel=False`; a kernel that cannot build or launch is an error the
-caller sees.
+caller sees. The kernel has no backward: on the kernel path an input that
+requires grad while grad is enabled raises (`no_backward_check`), and
+training passes `use_kernel=False`.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Optional, Tuple
 import torch
 
 # modules, not names: ref imports models.ssm, which imports this module
+from repro_torch.kernels import no_backward_check
 from repro_torch.kernels.ssd_scan import kernel, ref
 
 __all__ = ["ssd_scan"]
@@ -35,5 +38,6 @@ def ssd_scan(
             raise ValueError(f"ssd_scan has no path for device {x.device}")
         use_kernel = x.device.type == "cuda"
     if use_kernel:
+        no_backward_check("ssd_scan", x, dt, a_log, b_mat, c_mat)
         return kernel.ssd_scan_cuda(x, dt, a_log, b_mat, c_mat, chunk)
     return ref.ssd_scan_ref(x, dt, a_log, b_mat, c_mat, chunk)

@@ -21,7 +21,7 @@ single-token decode alike (the reference's all-ones mask).
 from __future__ import annotations
 
 import math
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -107,14 +107,17 @@ def attn_block(
     positions: torch.Tensor,  # [B, S]
     return_cache: bool = False,
     max_cache_len: int = 0,
+    use_kernel: Optional[bool] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
-    """Full-sequence causal attention (train / prefill)."""
+    """Full-sequence causal attention (train / prefill). `use_kernel` goes
+    to `flash_attention`: None picks the path by device, False the plain
+    version (training's, which carries gradients)."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     h, hd = q.shape[2], q.shape[3]
     # query row b*H + h reads key/value row (b*H + h) // g = b*Hkv + h // g
     out = flash_attention(_heads_major(q), _heads_major(k), _heads_major(v),
-                          causal=True, window=cfg.sliding_window)
+                          causal=True, window=cfg.sliding_window, use_kernel=use_kernel)
     out = out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     if not return_cache:
@@ -256,17 +259,19 @@ def cross_attn_block(
     cfg: ModelConfig,
     img_k: torch.Tensor,  # [B, I, Hkv, hd] precomputed from patch embeddings
     img_v: torch.Tensor,
+    use_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
     """x + tanh(g_a)*xattn + tanh(g_f)*ffn — the vision-conditioning layer.
 
     Every text position attends every image token: the flash-attention
     kernel with `causal=False` and no window, over heads-major copies of
-    q and of the image K/V (S = 1 in decode)."""
+    q and of the image K/V (S = 1 in decode). `use_kernel` as in
+    `attn_block`."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     b, s, nh, hd = q.shape
     out = flash_attention(_heads_major(q), _heads_major(img_k), _heads_major(img_v),
-                          causal=False, window=0)
+                          causal=False, window=0, use_kernel=use_kernel)
     out = out.reshape(b, nh, s, hd).permute(0, 2, 1, 3)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     x = x + torch.tanh(p["gate_attn"]) * out

@@ -7,11 +7,11 @@ over their own stack [G, ...]), so `repro_torch.convert` carries a JAX
 tree across as it is. A Python loop over layers replaces `lax.scan`; the
 VLM runs groups of `cross_attn_every - 1` self layers, then one cross
 layer, self layer j of group g being stacked row g*(cross_attn_every-1)+j.
-`loss_fn` waits for the training slice.
 
 Program surface:
   init(cfg, generator, device)                 — params
-  forward(cfg, params, batch)                  — logits [B,S,(K,)V], aux loss
+  forward(cfg, params, batch, use_kernel)      — logits [B,S,(K,)V], aux loss
+  loss_fn(cfg, params, batch) -> (loss, metrics)  — training's, differentiable
   prefill(cfg, params, batch) -> (logits, cache)
   decode_step(cfg, params, cache, batch)       — updates `cache` in place
 The VLM's batches carry "image_embeds" [B, I, d_model] (the stubbed
@@ -20,10 +20,11 @@ vision tower's patch embeddings); codebook models take tokens [B, S, K].
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers as lyr
 from repro_torch.models import ssm as ssm_lib
@@ -37,6 +38,7 @@ __all__ = [
     "attention_at_d_model_fan_in",
     "open_cross_gates",
     "forward",
+    "loss_fn",
     "prefill",
     "decode_step",
     "cache_spec",
@@ -238,14 +240,16 @@ def _ffn(cfg: ModelConfig, lp, x):
 
 
 def _self_layer(cfg: ModelConfig, lp, x, positions, max_cache_len: int = 0,
-                return_cache: bool = False):
+                return_cache: bool = False, use_kernel: Optional[bool] = None):
     """One decoder layer over the full sequence; (x, cache entries or {},
-    the MoE aux loss or None)."""
+    the MoE aux loss or None). `use_kernel` goes to the attention and the
+    SSD scan (None: by device; False: the plain versions)."""
     out_cache: Dict[str, torch.Tensor] = {}
     h = lyr.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.arch_type == "ssm":
         if not return_cache:
-            return x + ssm_lib.ssm_block(lp["ssm"], h, cfg), out_cache, None
+            return (x + ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel),
+                    out_cache, None)
         out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
             lp["ssm"], h, cfg, return_cache=True)
         return x + out, out_cache, None
@@ -253,13 +257,13 @@ def _self_layer(cfg: ModelConfig, lp, x, positions, max_cache_len: int = 0,
         attn_out, (out_cache["k"], out_cache["v"]) = lyr.attn_block(
             lp["attn"], h, cfg, positions, return_cache=True, max_cache_len=max_cache_len)
     else:
-        attn_out = lyr.attn_block(lp["attn"], h, cfg, positions)
+        attn_out = lyr.attn_block(lp["attn"], h, cfg, positions, use_kernel=use_kernel)
     if cfg.hybrid:
         if return_cache:
             s_out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
                 lp["ssm"], h, cfg, return_cache=True)
         else:
-            s_out = ssm_lib.ssm_block(lp["ssm"], h, cfg)
+            s_out = ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel)
         attn_out = 0.5 * (attn_out + s_out)
     x, aux = _ffn(cfg, lp, x + attn_out)
     return x, out_cache, aux
@@ -290,23 +294,60 @@ def _cross_kv_all(cfg: ModelConfig, params, img_embeds):
 
 
 # ================================================================= programs
-def forward(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ModelConfig, params, batch,
+            use_kernel: Optional[bool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward: logits [B,S,(K,)V], the MoE aux loss summed
-    over layers (0 without MoE)."""
+    over layers (0 without MoE).
+
+    `use_kernel` goes to every attention and SSD scan: None picks the
+    hand-written kernels on the card and the plain versions on the CPU;
+    False takes the plain versions on any device, which gradients need
+    (the kernels have no backward and raise on grad-requiring inputs).
+    With `cfg.remat` each self layer runs under
+    `torch.utils.checkpoint.checkpoint` (non-reentrant), as the reference
+    wraps its scan body in `jax.checkpoint`: its activations are
+    recomputed in the backward pass instead of kept, and no value changes.
+    """
     x = _embed_tokens(cfg, params, batch)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     if cfg.cross_attn_every:
         img_k, img_v = _cross_kv_all(cfg, params, batch["image_embeds"].to(x.dtype))
+
+    def self_layer(lp, x):
+        y, _, layer_aux = _self_layer(cfg, lp, x, positions, use_kernel=use_kernel)
+        return y, layer_aux
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, i in _stack_order(cfg):
         if kind == "cross":
-            x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg, img_k[i], img_v[i])
+            x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg, img_k[i], img_v[i],
+                                     use_kernel=use_kernel)
             continue
-        x, _, layer_aux = _self_layer(cfg, _layer(params["layers"], i), x, positions)
+        lp = _layer(params["layers"], i)
+        if cfg.remat:
+            x, layer_aux = torch.utils.checkpoint.checkpoint(self_layer, lp, x,
+                                                             use_reentrant=False)
+        else:
+            x, layer_aux = self_layer(lp, x)
         if layer_aux is not None:
             aux = aux + layer_aux
     return _logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Shifted next-token cross-entropy in float32 plus `forward`'s aux loss:
+    (loss, {"ce", "aux", "loss"}), 0-dim float32 tensors. Codebook logits
+    [B, S, K, V] take targets [B, S-1, K]. The forward takes the plain
+    attention and scan (`use_kernel=False`), so the loss differentiates on
+    any device, as the reference's does."""
+    logits, aux = forward(cfg, params, batch, use_kernel=False)
+    targets = batch["tokens"][:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
+    ce = nll.mean()
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}
 
 
 # ---------------------------------------------------------------- caching

@@ -112,8 +112,11 @@ def ssm_block(
     x: torch.Tensor,  # [B, S, D] (already normed)
     cfg: ModelConfig,
     return_cache: bool = False,
+    use_kernel: Optional[bool] = None,
 ):
-    """Full-sequence Mamba-2 block (train / prefill)."""
+    """Full-sequence Mamba-2 block (train / prefill). `use_kernel` goes to
+    `ssd_scan`: None picks the path by device, False the plain version
+    (training's, which carries gradients)."""
     bsz, s, _ = x.shape
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_groups
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
@@ -136,7 +139,8 @@ def ssm_block(
         c_p = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
         dt_p = F.pad(dt, (0, 0, 0, pad))
 
-    y, final_state = ssd_ops.ssd_scan(xs_p, dt_p, p["a_log"], b_p, c_p, cfg.ssm_chunk)
+    y, final_state = ssd_ops.ssd_scan(xs_p, dt_p, p["a_log"], b_p, c_p, cfg.ssm_chunk,
+                                      use_kernel=use_kernel)
     if pad:
         y = y[:, :s]
     y = y + xs * p["d_skip"][None, None, :, None]

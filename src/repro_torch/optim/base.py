@@ -55,9 +55,14 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor]:
+    """(tree scaled to a global norm of at most `max_norm`, the norm before).
+    A leaf comes back in its dtype promoted with the float32 scale's, as
+    JAX promotes it: a bfloat16 leaf becomes float32 (torch would keep a
+    tensor times a 0-dim tensor in the tensor's dtype)."""
     norm = global_norm(tree)
     scale = torch.clamp(max_norm / norm.clamp_min(1e-9), max=1.0)
-    return tree_map(lambda x: x * scale, tree), norm
+    return tree_map(lambda x: x.to(torch.promote_types(x.dtype, scale.dtype)) * scale,
+                    tree), norm
 
 
 def as_schedule(lr) -> Schedule:

@@ -9,7 +9,9 @@ run them on the CPU through both the JAX package and the port:
   * the §7.3 density sweep (`density_sweep`): `benchmarks/learn_bench.py`'s
     refine-only / +adapter / +reranker NDCG@5 and its gated promotion;
   * the learning plane's three acts (`stages_acts`):
-    `examples/live_loop.py --stages`.
+    `examples/live_loop.py --stages`;
+  * the training path's gradients on a device against the CPU's
+    (`grad_gaps`, over `GRAD_CASES`), which needs no namespace.
 
 The defaults are those scripts' settings. Nothing here imports the JAX
 package: the namespace brings it.
@@ -27,11 +29,16 @@ import repro_torch.control as control
 import repro_torch.learn as learn
 from repro_torch.convert import params_from_jax
 from repro_torch.core.deployment import recommend_stages
+from repro_torch.configs import get_config
 from repro_torch.core.refine import RefineConfig, refine_with_gate
 from repro_torch.embedding.bag_encoder import BagEncoder
 from repro_torch.index import ToolIndexManager
 from repro_torch.metrics.retrieval import ndcg_at_k
+from repro_torch.models import model as M
+from repro_torch.models.config import reduced
+from repro_torch.models.params import tree_leaves
 from repro_torch.obs import EventBus, HealthMonitor, QualityMonitor
+from repro_torch.optim.base import tree_map
 from repro_torch.router.gateway import SemanticRouter
 from repro_torch.router.stages import StageSet
 from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
@@ -65,6 +72,38 @@ LEARN_BANDS = (
 # live_loop.py --stages: the sparse window, held-out queries, the learner's
 # trigger and the stage guard's samples
 LEARN_SPARSE, LEARN_EVAL, LEARN_MIN_NEW, LEARN_MIN_SAMPLES = 600, 300, 1000, 64
+# the training path on a device: reduced configs whose `loss_fn` gradients
+# are held against the CPU's leaf by leaf, (overrides, relative tolerance):
+# 1e-4, or 1e-3 where an SSD scan is on the path (the parity tests' own)
+GRAD_CASES = {"hymba-1.5b": (dict(sliding_window=16), 1e-3), "dbrx-132b": ({}, 1e-4),
+              "llama-3.2-vision-90b": ({}, 1e-4)}
+
+
+def grad_gaps(arch, device, overrides=None, seed=0, batch=2, seq=40):
+    """{leaf path: ||g_device - g_cpu|| / ||g_cpu||} of `M.loss_fn`'s
+    gradients for the reduced float32 `arch`, drawn from `seed` on the CPU
+    (attention at a d_model fan-in, the VLM's gates open) and copied to
+    `device`, over one numpy batch (seeded image embeddings for the VLM).
+    A leaf whose CPU gradient is zero reads the absolute gap."""
+    cfg = reduced(get_config(arch), **(overrides or {}))
+    params = M.open_cross_gates(cfg, M.attention_at_d_model_fan_in(
+        cfg, M.init(cfg, torch.Generator().manual_seed(seed), "cpu")))
+    rng = np.random.default_rng(seed)
+    shape = (batch, seq) + ((cfg.n_codebooks,) if cfg.n_codebooks else ())
+    data = {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    if cfg.cross_attn_every:
+        data["image_embeds"] = rng.normal(
+            size=(batch, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+
+    def grads(dev):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        loss, _ = M.loss_fn(cfg, p, {k: torch.from_numpy(v).to(dev) for k, v in data.items()})
+        paths, leaves = zip(*tree_leaves(p))
+        return dict(zip(paths, (g.cpu() for g in torch.autograd.grad(loss, leaves))))
+
+    on_cpu, on_dev = grads(torch.device("cpu")), grads(torch.device(device))
+    return {path: float((on_dev[path] - g).norm() / (g.norm() if g.norm() > 0 else 1.0))
+            for path, g in on_cpu.items()}
 
 
 def port_pkg(device):

@@ -5,7 +5,8 @@ has no `msgpack`) and its own walk over the tree (no `jax.tree.map`).
 Files must cross both ways: a port-written checkpoint restores through
 `repro.checkpoint.restore_checkpoint` to equal arrays and meta, and the
 reverse; the payload bytes equal `msgpack.packb(..., use_bin_type=True)`,
-both on `OutcomeStore.save`'s payloads and on a mixed tree.
+both on `OutcomeStore.save`'s payloads and on a mixed tree; bfloat16
+leaves cross as the JAX package writes them.
 """
 import os
 
@@ -90,6 +91,32 @@ def test_tensors_are_saved_from_any_device_as_numpy(tmp_path):
     for k, v in tree.items():
         np.testing.assert_array_equal(restored[k], v.detach().numpy())
         assert restored[k].dtype == v.detach().numpy().dtype
+
+
+def test_bf16_leaves_cross_both_ways(tmp_path):
+    """A bfloat16 tensor is written under the dtype name the JAX package
+    writes ("bfloat16", its 16-bit patterns) and read back as a
+    torch.bfloat16 tensor: the port needs no ml_dtypes. Bytes equal."""
+    import jax.numpy as jnp
+
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn(3, 5, generator=g).to(torch.bfloat16)
+    port_tree = {"w": w, "s": torch.tensor(2.5, dtype=torch.bfloat16), "f": w.float()}
+    jax_tree = {"w": jnp.asarray(w.float().numpy(), jnp.bfloat16),
+                "s": jnp.asarray(2.5, jnp.bfloat16), "f": np.asarray(w.float().numpy())}
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    save_checkpoint(port_dir, 1, port_tree)
+    jax_save(jax_dir, 1, jax_tree)
+    assert _payload(os.path.join(port_dir, "step_00000001.ckpt")) == _payload(
+        os.path.join(jax_dir, "step_00000001.ckpt"))
+    _, from_jax, _ = restore_checkpoint(jax_dir)
+    for key in ("w", "s"):
+        assert from_jax[key].dtype == torch.bfloat16 and torch.equal(from_jax[key],
+                                                                     port_tree[key])
+    assert isinstance(from_jax["f"], np.ndarray)
+    _, from_port, _ = jax_restore(port_dir)
+    assert str(from_port["w"].dtype) == "bfloat16"
+    np.testing.assert_array_equal(np.asarray(from_port["w"], np.float32), w.float().numpy())
 
 
 def _stores(n_events=40, capacity=30):

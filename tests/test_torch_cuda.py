@@ -1,5 +1,7 @@
 """The port's hand-written CUDA kernels against their plain versions, on
-the card. Every test here is marked `cuda` and skips without a card.
+the card, and the training path there (gradients against the CPU's; the
+kernels' refusal of grad-requiring inputs). Every test here is marked
+`cuda` and skips without a card.
 
 This file imports neither JAX nor `repro`, so it runs on a machine that has
 only the port's dependencies. There, run it without the suite's conftest
@@ -15,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import scenarios
 from repro_torch.data.benchmarks import scale_tool_corpus
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -25,6 +28,7 @@ from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.topk_sim import kernel as topk_kernel
 from repro_torch.kernels.topk_sim.ops import topk_sim
 from repro_torch.kernels.topk_sim.ref import topk_sim_ref
+from repro_torch.optim.base import tree_map
 
 pytestmark = pytest.mark.cuda
 
@@ -1072,7 +1076,8 @@ def test_pool_family_with_kernels_equals_plain_on_the_card(cuda_device, arch):
     n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
     assert flash_kernel.launches - before == cfg.n_layers + 4 * n_cross
     plain = layers.flash_attention
-    layers.flash_attention = functools.partial(flash_attention, use_kernel=False)
+    # attn_block passes use_kernel=None itself: override it
+    layers.flash_attention = lambda *a, **kw: flash_attention(*a, **{**kw, "use_kernel": False})
     try:
         with_plain = run()
     finally:
@@ -1080,3 +1085,48 @@ def test_pool_family_with_kernels_equals_plain_on_the_card(cuda_device, arch):
     for a, b in zip(with_kernels, with_plain):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
+
+
+# ------------------------------------------------------------ the training path
+@pytest.mark.parametrize("arch", sorted(scenarios.GRAD_CASES))
+def test_loss_grads_on_the_card_equal_the_cpus(cuda_device, arch):
+    """`loss_fn`'s gradients of a reduced float32 model on the card against
+    the same model on the CPU, leaf by leaf: ||g_card - g_cpu|| within
+    1e-4 of ||g_cpu|| (1e-3 with an SSD scan on the path). Training takes
+    the plain attention and scan, so no kernel launches."""
+    from repro_torch import scenarios
+
+    overrides, tol = scenarios.GRAD_CASES[arch]
+    before = flash_kernel.launches, ssd_kernel.launches
+    gaps = scenarios.grad_gaps(arch, cuda_device, overrides)
+    torch.cuda.synchronize()
+    assert (flash_kernel.launches, ssd_kernel.launches) == before
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] <= tol, (worst, gaps[worst])
+
+
+def test_forward_with_grad_requiring_params_raises_on_the_card(cuda_device):
+    """The kernels have no backward: on the card `forward` picks them, and
+    a param that requires grad raises instead of losing its gradient. Under
+    no_grad (serving) the kernels run as before; `use_kernel=False`
+    differentiates."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced
+
+    cfg = reduced(get_config("hymba-1.5b"), sliding_window=16)
+    params = tree_map(lambda t: t.to(cuda_device).requires_grad_(),
+                      M.init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    batch = {"tokens": torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))).to(cuda_device)}
+    with pytest.raises(ValueError, match="flash_attention: the kernel has no backward"):
+        M.forward(cfg, params, batch)
+    before = flash_kernel.launches, ssd_kernel.launches
+    with torch.no_grad():
+        served, _ = M.forward(cfg, params, batch)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before[0] + cfg.n_layers
+    assert ssd_kernel.launches == before[1] + 3 * cfg.n_layers
+    trained, _ = M.forward(cfg, params, batch, use_kernel=False)
+    assert trained.grad_fn is not None
+    torch.testing.assert_close(served, trained.detach(), atol=1e-3, rtol=1e-3)

@@ -21,11 +21,13 @@ from repro_torch.core.evaluate import BenchmarkEvaluator
 from repro_torch.core.pipeline import OATSPipeline, PipelineConfig
 from repro_torch.core.reranker import train_reranker
 from repro_torch.index import DenseBackend, FusedBackend, ToolIndexManager
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import model as M
 from repro_torch.models.config import reduced
 from repro_torch.router.gateway import SemanticRouter
 from repro_torch.router.scheduler import ContinuousBatcher
 from repro_torch.router.tooldb import ToolRecord, ToolsDatabase
+from repro_torch.training.trainer import Trainer, TrainerConfig
 
 SRC = Path(repro_torch.__file__).resolve().parents[1]
 
@@ -55,7 +57,11 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.obs.summary", "repro_torch.obs.events", "repro_torch.obs.trace",
             "repro_torch.obs.quality", "repro_torch.obs.timeseries", "repro_torch.obs.health",
             "repro_torch.router.latency", "repro_torch.traffic.generator",
-            "repro_torch.traffic.harness", "repro_torch.scenarios"} <= set(modules)
+            "repro_torch.traffic.harness", "repro_torch.scenarios",
+            "repro_torch.optim.adafactor", "repro_torch.optim.sgd",
+            "repro_torch.optim.schedules", "repro_torch.data.lm_data",
+            "repro_torch.training", "repro_torch.training.train_step",
+            "repro_torch.training.trainer", "repro_torch.launch.train"} <= set(modules)
     blocked = ("jax", "repro", "msgpack", "zstandard")
     code = (
         "import importlib, sys, tempfile\n"
@@ -119,6 +125,8 @@ def test_entry_points_default_to_the_card(no_cuda):
         lambda: train_adapter(table, table, (np.zeros(0, np.int64),) * 3, table,
                               np.eye(4, dtype=np.float32)),
         lambda: RefinementController(db, OutcomeStore(n_tools=4), lambda t: table[:len(t)]),
+        lambda: Trainer(reduced(get_config("hymba-1.5b")), TrainerConfig()),
+        lambda: train_main(["--arch", "hymba-1.5b", "--smoke", "--steps", "1"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build()

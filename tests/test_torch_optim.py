@@ -3,7 +3,9 @@ JAX package, at the same params carried across.
 
 AdamW steps within 1e-6 (with and without weight decay: the reference
 decays inside the update, `u -= lr * wd * p`, which `torch.optim.AdamW`
-does not); the InfoNCE and BCE (dropout 0) losses and their gradients
+does not); Adafactor steps (factored and full statistics, float32 and
+bfloat16 params) and SGD steps (with and without Nesterov) within 1e-6;
+every learning-rate schedule within 1e-6 over steps 0-300; the InfoNCE and BCE (dropout 0) losses and their gradients
 within 1e-5; triplet mining (numpy) exactly equal; the paper's parameter
 counts. Inputs and params are made with numpy from a seed.
 """
@@ -98,6 +100,130 @@ def test_schedule_callable_passes_through():
     sched = optim.as_schedule(lambda step: step.float() * 0.5)
     assert float(sched(torch.tensor(4))) == 2.0
     assert float(optim.as_schedule(3e-4)(torch.tensor(1))) == pytest.approx(3e-4)
+
+
+# ------------------------------------------------ adafactor, sgd, schedules
+def _mixed_tree(seed, dtype=np.float32, scale=1.0):
+    """Leaves Adafactor factors ([7, 5], [2, 3, 4]) and keeps whole ([5],
+    [1, 4]: an axis of 1, [3])."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (7, 5), "b": (5,), "row": (1, 4), "stack": (2, 3, 4), "inner": {"v": (3,)}}
+
+    def draw(shape):
+        if isinstance(shape, dict):
+            return {k: draw(v) for k, v in shape.items()}
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    tree = draw(shapes)
+    if dtype == "bfloat16":
+        tree = jax.tree.map(lambda a: np.asarray(jnp.asarray(a, jnp.bfloat16)), tree)
+    return tree
+
+
+def _mixed_to_torch(tree):
+    from repro_torch.convert import params_from_jax
+    return params_from_jax(tree, "cpu")
+
+
+def _assert_sorted_close(t_tree, j_tree, tol=1e-6):
+    """Leaf by leaf in sorted-key order (a NamedTuple's fields in order),
+    shapes and dtypes equal, values within `tol`, absolute and relative
+    (the second-moment statistics reach ~10, where a float32 ulp is ~1e-6)."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, tuple):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    jl, tl = jax.tree.leaves(j_tree), leaves(t_tree)
+    assert len(jl) == len(tl)
+    for a, b in zip(jl, tl):
+        assert tuple(b.shape) == a.shape and str(b.dtype) == f"torch.{a.dtype}"
+        np.testing.assert_allclose(b.detach().float().numpy(), np.asarray(a, np.float32),
+                                   atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_adafactor_steps_match_jax(dtype):
+    """Four steps of a warmup-cosine Adafactor: updates, the row / column
+    (or full) statistics and the params after each within 1e-6."""
+    sched_j = jax_optim.warmup_cosine(1e-2, 2, 6)
+    sched_t = optim.warmup_cosine(1e-2, 2, 6)
+    jopt, topt = jax_optim.adafactor(sched_j), optim.adafactor(sched_t)
+    p0 = _mixed_tree(0, dtype)
+    jp, tp = _to_jax(p0), _mixed_to_torch(p0)
+    js, ts = jopt.init(jp), topt.init(tp)
+    assert set(ts.stats["w"]) == {"vr", "vc"} and set(ts.stats["stack"]) == {"vr", "vc"}
+    assert set(ts.stats["row"]) == {"v"} and set(ts.stats["b"]) == {"v"}
+    assert tuple(ts.stats["stack"]["vr"].shape) == (2, 3)
+    assert tuple(ts.stats["stack"]["vc"].shape) == (2, 4)
+    for step in range(4):
+        g = _mixed_tree(20 + step, scale=0.3 * (step + 1))
+        ju, js = jopt.update(_to_jax(g), js, jp)
+        tu, ts = topt.update(_mixed_to_torch(g), ts, tp)
+        _assert_sorted_close(tu, ju)
+        _assert_sorted_close(ts, js)
+        assert int(ts.step) == int(js.step) == step + 1
+        jp, tp = jax_optim.apply_updates(jp, ju), optim.apply_updates(tp, tu)
+        _assert_sorted_close(tp, jp)
+        want = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        assert all(x.dtype == want for x in optim.base.tree_leaves(tp))
+
+
+def test_adafactor_clips_the_update_rms():
+    """One huge gradient: the update's RMS is clip_threshold times lr."""
+    p = {"w": torch.zeros(8, 6)}
+    opt = optim.adafactor(1e-2, clip_threshold=1.0)
+    u, _ = opt.update({"w": torch.full((8, 6), 1e6)}, opt.init(p), p)
+    assert float(torch.sqrt(torch.mean(u["w"] ** 2))) == pytest.approx(1e-2, rel=1e-5)
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_sgd_steps_match_jax(nesterov):
+    """Three momentum steps: updates, the float32 momentum and the params
+    after each within 1e-6."""
+    jopt = jax_optim.sgd(jax_optim.linear_warmup(0.1, 2), momentum=0.9, nesterov=nesterov)
+    topt = optim.sgd(optim.linear_warmup(0.1, 2), momentum=0.9, nesterov=nesterov)
+    jp, tp = _to_jax(_tree(0)), _to_torch(_tree(0))
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(3):
+        g = _tree(30 + step, scale=0.3)
+        ju, js = jopt.update(_to_jax(g), js, jp)
+        tu, ts = topt.update(_to_torch(g), ts, tp)
+        _assert_trees_close(tu, ju, atol=1e-6, rtol=0)
+        _assert_trees_close(ts.momentum, js.momentum, atol=1e-6, rtol=0)
+        assert int(ts.step) == int(js.step) == step + 1
+        jp, tp = jax_optim.apply_updates(jp, ju), optim.apply_updates(tp, tu)
+        _assert_trees_close(tp, jp, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("name,args", [
+    ("constant", (3e-4,)),
+    ("linear_warmup", (1e-3, 100)),
+    ("linear_warmup", (1e-3, 0)),
+    ("cosine_decay", (1e-3, 200)),
+    ("cosine_decay", (1e-3, 200, 0.1)),
+    ("warmup_cosine", (3e-4, 100, 300)),
+    ("warmup_cosine", (1e-2, 10, 250, 1e-4)),
+])
+def test_schedules_match_jax(name, args):
+    """Every schedule over steps 0-300 from an int32 step, float32 out."""
+    jf, tf = getattr(jax_optim, name)(*args), getattr(optim, name)(*args)
+    for step in range(301):
+        t = tf(torch.tensor(step, dtype=torch.int32))
+        assert t.dtype == torch.float32 and t.dim() == 0
+        j = jf(jnp.asarray(step, jnp.int32))
+        np.testing.assert_allclose(float(t), float(j), atol=1e-6, rtol=0, err_msg=str(step))
+
+
+def test_clip_promotes_bf16_leaves_as_jax():
+    """A bf16 leaf times the float32 scale comes back float32 in both."""
+    g = {"w": jnp.asarray(np.full((4, 3), 2.0), jnp.bfloat16)}
+    jc, _ = jax_optim.clip_by_global_norm(g, 1.0)
+    tc, _ = optim.clip_by_global_norm({"w": torch.full((4, 3), 2.0, dtype=torch.bfloat16)}, 1.0)
+    assert jc["w"].dtype == jnp.float32 and tc["w"].dtype == torch.float32
+    np.testing.assert_allclose(tc["w"].numpy(), np.asarray(jc["w"]), atol=1e-7)
 
 
 # ------------------------------------------------------------------ losses
