@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, model pool (every family),
 offline OATS pipeline, online refinement loop, learning plane, IVF backend,
-serve launcher and training path once on one NVIDIA card.
+serve launcher, training path, runtime checks and multi-device runtime once
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -176,6 +177,36 @@ package `repro`. Phases, each of which fails the run by raising:
                restored into a fresh one, whose steps 3 and 4 must be
                within 1e-3 of the uninterrupted run's. No kernel launches
                on this path (every `launches_by_path` has "train": 0);
+ 14. runtime — (run before 7) the port's runtime checks: the retrace leg
+               (`repro_torch.analysis.retrace --smoke`) in a fresh process
+               over the 100,000-tool table through the fused backend, whose
+               `topk_sim` probe must grow within the routes `topk_route`
+               gives its padded buckets (+ 1 if the library was not
+               loaded when the sweep began) and by 0 on a second sweep; the lockgraph leg in process at the native 2,413
+               tools (fused): 0 cycles, 0 dispatch under a lock, 0 thread
+               errors; and an upload planted under a tracked lock, which
+               the watch must catch;
+ 15. mesh    — (run before 7) the multi-device runtime. (a) World size 1
+               over NCCL, mesh (1, 1) ("data", "model"): dbrx-132b (4 of
+               40 layers) through a 2,048-token prefill with
+               moe_impl="shard_map" against "gspmd"; musicgen-medium
+               (whole) through 8 decode steps with decode_attn="seq_shard"
+               (policy tp_kvs) against the baseline, both at
+               tests/test_torch_bf16.py's logits tolerance; the
+               ToolBench-like table's refinement sharded over "model"
+               within 1e-5; `Trainer(mesh=)` against one device; the MoE
+               block's and its all-reduce's ms; the flash kernel against
+               its plain version at both prefills' layer 0 and last layer
+               inputs. (b) Two gloo ranks sharing the card (this script
+               again, `--mesh-worker`), mesh (1, 2): the same checks against
+               (a)'s results, dbrx at capacity factor 8 with each rank
+               holding only its 8 of 16 experts (cut as they are drawn,
+               its memory printed), the flash check at its own prefills, the
+               refinement
+               over uneven row blocks (1,207 + 1,206), and two
+               data-parallel Trainer steps of full-width hymba-1.5b (2
+               layers, float32) on a (2, 1) mesh, gradients, losses and
+               params within 1e-4 of (a)'s one device;
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -201,8 +232,10 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -344,6 +377,20 @@ TRAIN_PROFILE_STEPS = 2  # steps under torch.profiler a run, for the idle share
 # hymba-1.5b in bf16 (the checkpoint goes through zlib at ~13 MB/s: 2 layers
 # at full width take 21 s to save, the full model would take minutes)
 TRAIN_RESUME_OPT, TRAIN_RESUME_ATOL = "adafactor", 1e-3
+# the runtime checks (phase 14): the retrace leg in a fresh process over the
+# 100,000-tool table, the lockgraph leg in process at the native 2,413 tools
+LOCKGRAPH_ITERS = 12
+RETRACE_TIMEOUT_S = 300
+# the multi-device runtime (phase 15): (a) world size 1 over NCCL, (b) two
+# gloo ranks sharing the card; models seeded alike in every process, bf16,
+# full width; dbrx at phase 12's depth, each rank holding its E/m experts
+MESH_SEED = 0
+MESH_PREFILL_LEN = 2048
+MESH_DECODE_PROMPT, MESH_DECODE_STEPS = 1024, 8  # musicgen-medium, whole
+MESH_REFINE_ATOL = 1e-5  # tests/test_distributed.py's refinement tolerance
+MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ = 2, 512  # hymba-1.5b full width, float32, batch 2
+MESH_TRAIN_ATOL = 1e-4  # grads (||d|| / ||ref|| a leaf), losses and params (max|d|)
+MESH_WORKER_TIMEOUT_S = 600
 
 
 def log(*parts) -> None:
@@ -370,6 +417,42 @@ def flash_error(got, ref) -> dict:
 def flash_within(e: dict, dtype: str) -> bool:
     return e["max_abs_err"] <= e["atol"] and (dtype != "bfloat16"
                                                or e["rel_norm"] <= FLASH_BF16_RTOL)
+
+
+def check_flash_call(name, q, k, v, causal=True, window=0, q_offset=0, route=None) -> dict:
+    """The flash kernel against its plain version within `flash_error`'s
+    limits; the launch must take the route `flash_route` gives (or `route`,
+    forced). The plain version runs in float32 on the same input values,
+    so a bf16 output is held for its own rounding alone: against the plain
+    version's bf16 output two roundings may differ by one bf16 ulp, which
+    is more than FLASH_ATOL once |out| >= 4. Returns the check's record;
+    raises outside the limits."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    want = route or flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v)
+    before = dict(flash_kernel.launches_by_route)
+    got = flash_kernel.flash_attention_cuda(q, k, v, route=route, **kw)
+    torch.cuda.synchronize()
+    if flash_kernel.launches_by_route != {**before, want: before[want] + 1}:
+        raise AssertionError(f"flash_attention {name}: not launched on the {want} route")
+    ref = attention_ref(q.float(), k.float(), v.float(), **kw)
+    dtype = str(q.dtype).replace("torch.", "")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention {name}: non-finite output ({want})")
+    e = flash_error(got, ref)
+    said = (f"max|d|={e['max_abs_err']:.3g} (limit {e['atol']:.3g}; max|plain| "
+            f"{e['max_abs_ref']:.3g}), ||d||/||plain||={e['rel_norm']:.3g}"
+            + (f" (limit {FLASH_BF16_RTOL})" if dtype == "bfloat16" else ""))
+    if not flash_within(e, dtype):
+        raise AssertionError(f"flash_attention {name}: {said} ({dtype}, {want})")
+    log(f"kernel check flash_attention {name} {dtype} {want} q{list(q.shape)} "
+        f"kv{list(k.shape)} {kw}: {said}")
+    return dict(case=name, dtype=dtype, route=want, bh=q.shape[0], bhkv=k.shape[0],
+                sq=q.shape[1], skv=k.shape[1], hd=q.shape[2], **kw, **e)
 
 
 def same_ranking(idx_a, sc_a, idx_b, sc_b, tie: float) -> bool:
@@ -2615,6 +2698,610 @@ def train_phase(dev, card):
     return out
 
 
+# ---------------------------------------------------- 14. runtime, 15. mesh
+def runtime_phase(dev, card, big, native, tmp):
+    """Phase 14: the port's runtime checks on the card. The retrace leg
+    (`python -m repro_torch.analysis.retrace --smoke` over the 100,000-tool
+    table, fused backend) in a fresh process, whose `topk_sim` probe must
+    stay within the route-derived budget and grow by 0 on the second sweep;
+    the lockgraph leg in process over the native 2,413 tools (fused): 0
+    cycles, 0 dispatch under a lock, 0 thread errors; and a planted upload
+    under a tracked lock, which the watch must catch. Returns the summary
+    (the retrace process's kernel launches in "retrace_launches"); raises
+    on any failed check."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import lockgraph
+
+    out = {"card": card}
+    table_path = Path(tmp) / "retrace_table.npy"
+    np.save(table_path, np.ascontiguousarray(big, np.float32))
+    code = ("import json, sys\n"
+            "from repro_torch.analysis import retrace\n"
+            "from repro_torch.kernels.topk_sim import kernel\n"
+            "rc = retrace.main(sys.argv[1:])\n"
+            "print('LAUNCHES ' + json.dumps({'launches': kernel.launches, "
+            "'routes': kernel.launches_by_route}))\n"
+            "sys.exit(rc)\n")
+    t0 = time.perf_counter()
+    retrace_proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--smoke", "--table", str(table_path), "--device",
+         str(dev)],
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    # ---- (b) lockgraph in process, at the native table, beside the retrace
+    # process (both on the card; neither is timed)
+    t1 = time.perf_counter()
+    report = lockgraph.run_scenario(seed=0, iters=LOCKGRAPH_ITERS, device=dev, table=native)
+    out["lockgraph"] = dict(
+        seconds=time.perf_counter() - t1, tools=int(native.shape[0]), locks=report["locks"],
+        edges=report["edges"], cycles=report["cycles"],
+        dispatch_under_lock=report["dispatch_under_lock"], errors=report["errors"])
+    log(f"runtime: lockgraph at {native.shape[0]} tools (fused, {report['device']}): "
+        f"{len(report['locks'])} tracked locks, edges {report['edges']}, "
+        f"{len(report['cycles'])} cycles, {len(report['dispatch_under_lock'])} dispatch "
+        f"under a lock, {len(report['errors'])} thread errors in "
+        f"{out['lockgraph']['seconds']:.1f} s")
+    if report["cycles"] or report["dispatch_under_lock"] or report["errors"]:
+        raise AssertionError(f"runtime: lockgraph failed: {json.dumps(out['lockgraph'])}")
+
+    # ---- (c) the negative control: an upload under a tracked lock is caught
+    graph = lockgraph.LockGraph()
+    planted = lockgraph.TrackedLock(graph, name="planted")
+    with lockgraph.watch_dispatch(graph):
+        with planted:
+            torch.ones(8).to(dev)
+    caught = [ev["fn"] for ev in graph.dispatch_events]
+    out["planted_caught"] = caught
+    if "Tensor.to" not in caught:
+        raise AssertionError(f"runtime: the planted upload under a lock was not caught ({caught})")
+    log(f"runtime: a planted upload to {dev} under a tracked lock is caught: {caught}")
+
+    # ---- (a) the retrace process
+    stdout, stderr = retrace_proc.communicate(timeout=RETRACE_TIMEOUT_S)
+    out["retrace_seconds"] = time.perf_counter() - t0
+    if retrace_proc.returncode != 0:
+        raise AssertionError(f"runtime: retrace exited {retrace_proc.returncode}:\n"
+                             f"{stdout}\n{stderr}")
+    m = re.search(r"topk_sim: (\d+) load\(s\)/first launch\(es\), budget (\d+); "
+                  r"second sweep (\d+)", stdout)
+    launches = json.loads(stdout.split("LAUNCHES ", 1)[1].splitlines()[0])
+    grew, budget, second = (int(g) for g in m.groups())
+    out["retrace"] = dict(tools=int(big.shape[0]), dim=int(big.shape[1]), grew=grew,
+                          budget=budget, second_sweep=second, **launches)
+    log(f"runtime: retrace over {big.shape[0]} x {big.shape[1]} (fused) in a fresh process: "
+        f"the topk_sim probe grew {grew} (budget {budget}: the routes "
+        f"{sorted(r for r, n in launches['routes'].items() if n)} of its buckets, + 1 if the "
+        f"library was not loaded when the sweep began), second "
+        f"sweep {second}; {launches['launches']} launches in {out['retrace_seconds']:.1f} s")
+    if not (grew <= budget and second == 0 and launches["launches"] > 0):
+        raise AssertionError(f"runtime: retrace outside its budget: {out['retrace']}")
+    return out
+
+
+def _mesh_families():
+    """(dbrx at phase 12's depth, the same at the two-rank capacity factor,
+    musicgen whole), bf16 at full width."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    dbrx = dataclasses.replace(get_config("dbrx-132b"), n_layers=FAMILIES["dbrx-132b"][0])
+    return dbrx, dataclasses.replace(dbrx, capacity_factor=8.0), get_config("musicgen-medium")
+
+
+def _mesh_trainer_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.training.train_step import TrainConfig
+    from repro_torch.training.trainer import TrainerConfig
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=MESH_TRAIN_LAYERS,
+                              dtype="float32")
+    # an lr at which two steps' updates stand well above the params' float32
+    # rounding, so the updates can be compared
+    train = TrainConfig(optimizer="sgd", learning_rate=0.1, warmup_steps=0, total_steps=10)
+    return cfg, TrainerConfig(steps=2, log_every=1, seed=0, train=train)
+
+
+def _mesh_batches(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    return [{"tokens": rng.integers(0, cfg.vocab_size, (2, MESH_TRAIN_SEQ)).astype(np.int32)}
+            for _ in range(2)]
+
+
+def _prompt(cfg, length, dev, seed):
+    import torch
+
+    shape = (1, length, cfg.n_codebooks) if cfg.n_codebooks else (1, length)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
+
+
+def _seeded_params(cfg, dev):
+    """The model every rank draws alike: seeded on its device, attention at
+    a d_model fan-in (as the pool serves)."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    return M.attention_at_d_model_fan_in(cfg, M.init(cfg, gen, device=dev))
+
+
+def _decode_run(cfg, params, prompt, n_steps, tokens=None, mesh=None):
+    """Prefill `prompt`, then `n_steps` decode steps (greedy on the first
+    codebook row unless `tokens` gives them); under `mesh` the cache is
+    sharded by `decode_cache_specs`. ([logits a step], [tokens fed])."""
+    from repro_torch.common import meshctx
+    from repro_torch.models import model as M
+    from repro_torch.models.decode_shard_map import shard_decode_cache
+
+    s = prompt.shape[1]
+    _, cache = M.prefill(cfg, params, {"tokens": prompt}, max_cache_len=s + n_steps)
+    logits, fed = [], []
+    ctx = meshctx.use_mesh(mesh) if mesh is not None else contextlib.nullcontext()
+    with ctx:
+        if mesh is not None:
+            cache = shard_decode_cache(cfg, cache, mesh)
+        tok = prompt[:, -1:]
+        for i in range(n_steps):
+            if tokens is not None:
+                tok = tokens[i]
+            fed.append(tok)
+            out, cache = M.decode_step(cfg, params, cache, {"token": tok, "pos": s + i})
+            logits.append(out)
+            if tokens is None:
+                tok = out.argmax(-1)
+    return logits, fed
+
+
+def _prefill_flash_calls(calls, cfg, prompt_len, what):
+    """[(name, (q, k, v), kwargs)] of layer 0 and the last layer among the
+    flash_attention calls `recorded_model_calls` recorded over a prefill
+    of `prompt_len` tokens (its first n_layers calls), for the kernel check
+    at the mesh path's own shapes."""
+    pre = calls[:cfg.n_layers]
+    if len(pre) != cfg.n_layers or any(c[0][0].shape[1] != prompt_len for c in pre):
+        raise AssertionError(f"mesh: {what} recorded {len(calls)} flash calls, not "
+                             f"{cfg.n_layers} over {prompt_len} tokens first")
+    return [(f"mesh {what} layer {i}", *pre[i]) for i in (0, cfg.n_layers - 1)]
+
+
+def _bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for _, v in _named_leaves(tree))
+
+
+def _moe_block_input(cfg, params, dev):
+    """(layer 0's MoE params, a seeded [1, MESH_PREFILL_LEN, d_model] input
+    at the model's dtype): the shapes the block takes in the prefill."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((1, MESH_PREFILL_LEN, cfg.d_model), generator=g, device=dev)
+    return ({k: v[0] for k, v in params["layers"]["moe"].items()},
+            x.to(getattr(torch, cfg.dtype)))
+
+
+def _bf16_check(got, ref, what):
+    """bf16 logits against their reference at `bf16_logits_close`'s
+    tolerance (a whole model's rounding, not one attention call's:
+    `flash_error`'s numbers are reported beside it)."""
+    e = flash_error(got, ref)
+    e["max_abs_err"], ok = bf16_logits_close(got, ref)
+    if not ok:
+        raise AssertionError(f"mesh: {what} outside the bf16 logits tolerance: {e}")
+    return e
+
+
+def _leaf_gaps(got, ref, names):
+    """(worst leaf, ||g - g_ref|| / ||g_ref||) over leaves, as
+    `scenarios.grad_gaps` reads them (the absolute gap where g_ref is 0)."""
+    gaps = {n: float((a - b).norm() / (b.norm() if b.norm() > 0 else 1.0))
+            for n, a, b in zip(names, got, ref)}
+    worst = max(gaps, key=gaps.get)
+    return worst, gaps[worst]
+
+
+def _mesh_trainer(cfg, tc, **kwargs):
+    """A Trainer whose model has wq, wk, wv at a d_model fan-in (as phase
+    13 trains: the reference's init makes the attention logits so large
+    that float32 rounding moves its gradients by ~1e-3 between batch
+    splits), and the names of its params' leaves."""
+    from repro_torch.models import model as M
+    from repro_torch.training.trainer import Trainer
+
+    trainer = Trainer(cfg, tc, **kwargs)
+    trainer.params = M.attention_at_d_model_fan_in(cfg, trainer.params)
+    names = [path for path, _ in _named_leaves(trainer.params)]
+    return trainer, names
+
+
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def mesh_phase(dev, card, bench, native, q_all, tmp, backend="nccl"):
+    """Phase 15: the multi-device runtime on the card. (a) world size 1
+    over `backend` (NCCL), mesh (1, 1) ("data", "model"): dbrx-132b (phase
+    12's depth) through a 2,048-token prefill with moe_impl="shard_map"
+    against "gspmd" at the bf16 rule; musicgen-medium's decode steps with
+    decode_attn="seq_shard" against the baseline; the ToolBench-like
+    table's refinement sharded against unsharded; a `Trainer(mesh=)` step
+    against a single-device one; the MoE block's and its all-reduce's ms.
+    Then the references of (b): two ranks sharing the card over gloo, mesh
+    (1, 2), in processes of their own (`mesh_worker`): the same checks
+    against (a)'s results, dbrx at capacity factor 8 with each rank
+    holding its E/2 experts, and two data-parallel Trainer steps on a (2, 1)
+    mesh. Returns the summary, with the world-size-1 prefills' flash inputs
+    in "flash_calls" (layer 0 and the last, for the kernel check after the
+    path's launches are read) and the gloo ranks' own such checks in
+    "gloo_flash_checks"; raises on any failed check."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import meshctx
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
+    out = {"card": card}
+    try:
+        meshctx.make_mesh((1, 1), ("data", "model"), dev)
+    except RuntimeError as err:
+        out["no_group_error"] = str(err)
+    else:
+        raise AssertionError("mesh: make_mesh without a process group did not raise")
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = meshctx.make_mesh((1, 1), ("data", "model"), dev)
+        out["world1"] = _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp)
+        out["flash_calls"] = out["world1"].pop("flash_calls")
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not flash_kernel.launches:
+        raise AssertionError("mesh: the world-size-1 path launched no flash kernel")
+
+    # ---- (b) two ranks sharing the card over gloo
+    log(f"mesh: {torch.cuda.memory_allocated() / 1e9:.1f} GB held here while the two gloo "
+        f"ranks run")
+    t0 = time.perf_counter()
+    port = _free_port()
+    procs = [subprocess.Popen(_worker_argv(r, port, tmp), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    results, texts = {}, {}
+    try:
+        for r, p in enumerate(procs):
+            texts[r] = p.communicate(timeout=MESH_WORKER_TIMEOUT_S)[0]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("mesh: the gloo ranks exited " + ", ".join(
+            f"{r}: {p.returncode}:\n{texts[r][-4000:]}" for r, p in enumerate(procs)))
+    for r, p in enumerate(procs):
+        lines = [l for l in texts[r].splitlines() if l.startswith("MESH_WORKER ")]
+        if not lines:
+            raise AssertionError(f"mesh: gloo rank {r} printed no result:\n{texts[r][-4000:]}")
+        results[r] = json.loads(lines[-1][len("MESH_WORKER "):])
+        for l in texts[r].splitlines():
+            if l.startswith("mesh["):
+                log(f"{l} on {card}")
+    out["gloo"] = results
+    out["gloo_seconds"] = time.perf_counter() - t0
+    out["gloo_launches"] = {"flash_attention": sum(r["launches"]["flash_attention"]
+                                                   for r in results.values())}
+    out["gloo_flash_checks"] = [c for r in results.values() for c in r.pop("flash_checks")]
+    log(f"mesh: two gloo ranks on one card in {out['gloo_seconds']:.1f} s, flash launches "
+        f"{out['gloo_launches']}; gloo took the CUDA tensors of every collective (all_reduce "
+        f"SUM and MAX, all_gather): no op staged through the host, on {card}")
+    return out
+
+
+def _worker_argv(rank, port, tmp):
+    """The command of one of phase 15's gloo ranks: this script again."""
+    return [sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(rank),
+            "--port", str(port), "--dir", str(tmp)]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
+    """Phase 15 (a) on a (1, 1) mesh; saves (b)'s references in `tmp`."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.common import meshctx, sharding
+    from repro_torch.core.refine import refine_embeddings
+    from repro_torch.models import layers, model as M
+    from repro_torch.models.moe_shard_map import moe_block_shard_map, shard_expert_params
+    from repro_torch.optim.base import tree_leaves
+
+    out = {}
+    refs = {}
+    flash_calls = []  # the mesh path's flash inputs, checked once its launches are read
+    dbrx, dbrx_b, musicgen = _mesh_families()
+    # ---- the MoE: gspmd against shard_map at phase 12's depth
+    with torch.no_grad():
+        params = _seeded_params(dbrx, dev)
+        prompt = _prompt(dbrx, MESH_PREFILL_LEN, dev, 11)
+        ref, _ = M.prefill(dbrx, params, {"tokens": prompt})
+        # (b)'s reference: the same model at capacity factor 8
+        refs["dbrx"] = M.prefill(dbrx_b, params, {"tokens": prompt})[0].cpu()
+        sm = dataclasses.replace(dbrx, moe_impl="shard_map")
+        calls = []
+        with meshctx.use_mesh(mesh), recorded_model_calls(calls, []):
+            got, _ = M.prefill(sm, shard_expert_params(sm, params, mesh), {"tokens": prompt})
+        flash_calls += _prefill_flash_calls(calls, dbrx, MESH_PREFILL_LEN, "dbrx shard_map prefill")
+        del calls
+        e = _bf16_check(got, ref, "dbrx shard_map prefill")
+        p, x = _moe_block_input(dbrx, params, dev)
+        with meshctx.use_mesh(mesh):
+            y = moe_block_shard_map(p, x, sm)[0]
+            times = dict(gspmd_ms=cuda_ms(lambda: layers.moe_block(p, x, dbrx), iters=5),
+                         shard_map_ms=cuda_ms(lambda: moe_block_shard_map(p, x, sm), iters=5),
+                         psum_ms=cuda_ms(lambda: mesh.psum(y, "model"), iters=20))
+        out["moe"] = dict(layers=dbrx.n_layers, tokens=MESH_PREFILL_LEN, err=e, **times,
+                          y_shape=list(y.shape))
+        log(f"mesh[world 1] dbrx-132b {dbrx.n_layers} of 40 layers, {MESH_PREFILL_LEN}-token "
+            f"prefill: shard_map against gspmd max|d| {e['max_abs_err']:.3g} (rel norm "
+            f"{e['rel_norm']:.3g}); MoE block {times['gspmd_ms']:.3f} "
+            f"ms gspmd, {times['shard_map_ms']:.3f} ms shard_map, its all-reduce of "
+            f"{list(y.shape)} bf16 {times['psum_ms']:.4f} ms on {card}")
+        del params, p, x, y, got, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- musicgen: seq-sharded decode against the baseline
+        params = _seeded_params(musicgen, dev)
+        prompt = _prompt(musicgen, MESH_DECODE_PROMPT, dev, 12)
+        base, fed = _decode_run(musicgen, params, prompt, MESH_DECODE_STEPS)
+        seq = dataclasses.replace(musicgen, decode_attn="seq_shard")
+        calls = []
+        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, []):
+            got, _ = _decode_run(seq, params, prompt, MESH_DECODE_STEPS, tokens=fed, mesh=mesh)
+        flash_calls += _prefill_flash_calls(calls, musicgen, MESH_DECODE_PROMPT,
+                                            "musicgen-medium prefill")
+        del calls
+        errs = [_bf16_check(g, b, f"musicgen decode step {i}")
+                for i, (g, b) in enumerate(zip(got, base))]
+        out["decode"] = dict(steps=MESH_DECODE_STEPS, prompt=MESH_DECODE_PROMPT,
+                             max_abs_err=max(x["max_abs_err"] for x in errs))
+        refs["musicgen"] = dict(logits=[b.cpu() for b in base], fed=[f.cpu() for f in fed])
+        log(f"mesh[world 1] musicgen-medium {MESH_DECODE_STEPS} decode steps after a "
+            f"{MESH_DECODE_PROMPT}-token prompt, seq_shard / tp_kvs against the baseline: "
+            f"max|d| {out['decode']['max_abs_err']:.3g}")
+        del params, base, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- refinement of the ToolBench-like table, sharded over "model"
+    train = bench.train_idx
+    rel = torch.from_numpy(bench.relevance_matrix()[train]).to(dev)
+    q = torch.from_numpy(np.ascontiguousarray(q_all[train])).to(dev)
+    t = torch.from_numpy(np.ascontiguousarray(native)).to(dev)
+    ref = refine_embeddings(t, q, rel, keep_history=False)
+    with meshctx.use_mesh(mesh):
+        got = sharding.gather_rows(refine_embeddings(
+            sharding.distribute_rows(t, mesh, ("model", None)), q,
+            sharding.distribute_rows(rel, mesh, (None, "model")), keep_history=False))
+    err = float((got - ref).abs().max())
+    out["refine"] = dict(tools=int(t.shape[0]), queries=int(q.shape[0]), max_abs_err=err)
+    refs["refine"] = dict(q=q.cpu(), t=t.cpu(), rel=rel.cpu(), out=ref.cpu())
+    log(f"mesh[world 1] refinement of {t.shape[0]} tools x {q.shape[0]} train queries "
+        f"sharded over model: max|d| {err:.3g}")
+    if err > MESH_REFINE_ATOL:
+        raise AssertionError(f"mesh: sharded refinement off by {err}")
+
+    # ---- the Trainer: single device, and Trainer(mesh=) at world size 1
+    cfg, tc = _mesh_trainer_config()
+    batches = _mesh_batches(cfg)
+    single, _ = _mesh_trainer(cfg, tc, device=dev)
+    batch = {"tokens": torch.from_numpy(batches[0]["tokens"]).to(dev)}
+    grads = torch.autograd.grad(M.loss_fn(cfg, single.params, batch)[0],
+                                tree_leaves(single.params))
+    init = [p.detach().clone() for p in tree_leaves(single.params)]
+    hist = single.fit(iter(batches), log=lambda *_: None)
+    meshed, _ = _mesh_trainer(cfg, tc, mesh=mesh)
+    hist_m = meshed.fit(iter(batches), log=lambda *_: None)
+    perr = max(float((a - b).detach().abs().max()) for a, b in
+               zip(tree_leaves(single.params), tree_leaves(meshed.params)))
+    lerr = max(abs(x["loss"] - y["loss"]) for x, y in zip(hist, hist_m))
+    out["trainer"] = dict(layers=cfg.n_layers, params=cfg.param_count(), loss_err=lerr,
+                          param_err=perr, losses=[x["loss"] for x in hist])
+    refs["trainer"] = dict(grads=[g.cpu() for g in grads],
+                           updates=[(p.detach() - p0).cpu() for p, p0 in
+                                    zip(tree_leaves(single.params), init)],
+                           losses=[x["loss"] for x in hist])
+    log(f"mesh[world 1] Trainer(mesh=) against one device, hymba-1.5b {cfg.n_layers} layers "
+        f"float32, SGD: losses {[round(x['loss'], 5) for x in hist]}, |d loss| {lerr:.3g}, "
+        f"params max|d| {perr:.3g}")
+    if lerr > MESH_TRAIN_ATOL or perr > MESH_TRAIN_ATOL:
+        raise AssertionError(f"mesh: Trainer(mesh=) at world size 1 off: {out['trainer']}")
+    del single, meshed, grads
+    torch.save(refs, Path(tmp) / "mesh_refs.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["flash_calls"] = flash_calls
+    return out
+
+
+def mesh_worker(rank: int, port: int, tmp: str) -> int:
+    """One of phase 15's two gloo ranks on the one card, mesh (1, 2)
+    ("data", "model"): the checks of (b) against the references (a) saved
+    in `tmp`. Prints `mesh[rank R] ...` lines and, last, `MESH_WORKER
+    {json}`; raises on a failed check."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.common import meshctx, sharding
+    from repro_torch.core.refine import refine_embeddings
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import model as M
+    from repro_torch.models.moe_shard_map import init_expert_parallel, moe_block_shard_map
+    from repro_torch.optim.base import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)  # both ranks share the one card
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    refs = torch.load(Path(tmp) / "mesh_refs.pt")
+    out = {"rank": rank, "launches": {}}
+
+    def say(text):
+        log(f"mesh[rank {rank} of 2, gloo] {text}")
+
+    mesh = meshctx.make_mesh((1, 2), ("data", "model"), dev)
+    _, dbrx_b, musicgen = _mesh_families()
+    sm = dataclasses.replace(dbrx_b, moe_impl="shard_map")
+    flash_kernel.launches = 0
+    flash_calls = []
+    with torch.no_grad():
+        # (a)'s model, each expert weight cut to this rank's E/2 as it is
+        # drawn: the rank never holds all E experts in bf16; the ranks draw
+        # in turns, so one whole expert weight's float32 draw is on the card
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(2):
+            if r == rank:
+                gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+                params = M.attention_at_d_model_fan_in(
+                    sm, init_expert_parallel(sm, gen, mesh, dev))
+                torch.cuda.empty_cache()
+            dist.barrier()
+        memory = dict(param_bytes=_bytes(params),
+                      full_param_bytes=sm.param_count() * params["embed"].element_size(),
+                      experts_here=int(params["layers"]["moe"]["w_gate"].shape[1]),
+                      init_peak_bytes=torch.cuda.max_memory_allocated(),
+                      allocated_bytes=torch.cuda.memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        prompt = _prompt(sm, MESH_PREFILL_LEN, dev, 11)
+        calls = []
+        with meshctx.use_mesh(mesh), recorded_model_calls(calls, []):
+            got, _ = M.prefill(sm, params, {"tokens": prompt})
+        flash_calls += _prefill_flash_calls(calls, sm, MESH_PREFILL_LEN,
+                                            f"dbrx shard_map prefill, rank {rank} of 2")
+        del calls
+        memory["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["memory"] = memory
+        with meshctx.use_mesh(mesh):
+            e = _bf16_check(got, refs["dbrx"].to(dev), "dbrx shard_map prefill on 2 ranks")
+            p, x = _moe_block_input(dbrx_b, params, dev)
+            y = moe_block_shard_map(p, x, sm)[0]
+            times = dict(shard_map_ms=cuda_ms(lambda: moe_block_shard_map(p, x, sm), iters=5),
+                         psum_ms=cuda_ms(lambda: mesh.psum(y, "model"), iters=10))
+        out["moe"] = dict(layers=dbrx_b.n_layers, err=e, **times)
+        say(f"dbrx-132b {dbrx_b.n_layers} of 40 layers, capacity factor 8, {MESH_PREFILL_LEN}-token "
+            f"prefill with {memory['experts_here']} of {dbrx_b.n_experts} experts held here, "
+            f"against world size 1's gspmd: max|d| {e['max_abs_err']:.3g} (rel norm "
+            f"{e['rel_norm']:.3g}); params here {memory['param_bytes'] / 1e9:.2f} GB of the "
+            f"model's {memory['full_param_bytes'] / 1e9:.2f} GB (peak {memory['init_peak_bytes'] / 1e9:.2f}"
+            f" GB through the draw), {memory['allocated_bytes'] / 1e9:.2f} GB allocated before the "
+            f"prefill, peak {memory['prefill_peak_bytes'] / 1e9:.2f} GB through it; MoE block {times['shard_map_ms']:.3f} ms, its gloo all-reduce of "
+            f"{list(y.shape)} bf16 {times['psum_ms']:.3f} ms")
+        del params, p, x, y, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        params = _seeded_params(musicgen, dev)
+        prompt = _prompt(musicgen, MESH_DECODE_PROMPT, dev, 12)
+        seq = dataclasses.replace(musicgen, decode_attn="seq_shard")
+        fed = [f.to(dev) for f in refs["musicgen"]["fed"]]
+        calls = []
+        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, []):
+            got, _ = _decode_run(seq, params, prompt, MESH_DECODE_STEPS, tokens=fed, mesh=mesh)
+        flash_calls += _prefill_flash_calls(calls, musicgen, MESH_DECODE_PROMPT,
+                                            f"musicgen-medium prefill, rank {rank} of 2")
+        del calls
+        errs = [_bf16_check(g, b.to(dev), f"musicgen decode step {i} on 2 ranks")
+                for i, (g, b) in enumerate(zip(got, refs["musicgen"]["logits"]))]
+        out["decode"] = dict(max_abs_err=max(x["max_abs_err"] for x in errs))
+        say(f"musicgen-medium {MESH_DECODE_STEPS} decode steps, W/2 cache slots a rank, against "
+            f"world size 1's baseline: max|d| {out['decode']['max_abs_err']:.3g}")
+        del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"]["flash_attention"] = flash_kernel.launches
+    if not flash_kernel.launches:
+        raise AssertionError("mesh: a gloo rank launched no flash kernel")
+    # the kernel at this rank's prefill inputs against its plain version
+    # (after the count: a comparison's launches are not the path's)
+    out["flash_checks"] = [check_flash_call(name, *args, **kw) for name, args, kw in flash_calls]
+    del flash_calls
+
+    r = refs["refine"]
+    q, t, rel = (r[n].to(dev) for n in ("q", "t", "rel"))
+    with meshctx.use_mesh(mesh):
+        t_s = sharding.distribute_rows(t, mesh, ("model", None))
+        got = sharding.gather_rows(refine_embeddings(
+            t_s, q, sharding.distribute_rows(rel, mesh, (None, "model")), keep_history=False))
+    err = float((got - r["out"].to(dev)).abs().max())
+    out["refine"] = dict(rows_here=int(t_s.to_local().shape[0]), max_abs_err=err)
+    say(f"refinement of {t.shape[0]} tools, {out['refine']['rows_here']} rows here: max|d| "
+        f"{err:.3g} against world size 1's unsharded")
+    if err > MESH_REFINE_ATOL:
+        raise AssertionError(f"mesh: sharded refinement off by {err}")
+
+    dp = meshctx.make_mesh((2, 1), ("data", "model"), dev)
+    cfg, tc = _mesh_trainer_config()
+    batches = _mesh_batches(cfg)
+    trainer, names = _mesh_trainer(cfg, tc, mesh=dp)
+    local = {"tokens": trainer._rows(batches[0]["tokens"])}
+    with meshctx.use_mesh(dp):
+        g_local = torch.autograd.grad(M.loss_fn(cfg, trainer.params, local)[0],
+                                      tree_leaves(trainer.params))
+    grads = trainer._data_mean(list(g_local))
+    leaf, gap = _leaf_gaps(grads, [g.to(dev) for g in refs["trainer"]["grads"]], names)
+    init = [p.detach().clone() for p in tree_leaves(trainer.params)]
+    hist = trainer.fit(iter(batches), log=lambda *_: None)
+    lerr = max(abs(a["loss"] - b) for a, b in zip(hist, refs["trainer"]["losses"]))
+    updates = [p.detach() - p0 for p, p0 in zip(tree_leaves(trainer.params), init)]
+    ref_updates = [u.to(dev) for u in refs["trainer"]["updates"]]
+    # the params' gap (both ranks start from (a)'s init), and the updates'
+    # relative gap, read at the params' float32 resolution (printed)
+    perr = max(float((u - r).abs().max()) for u, r in zip(updates, ref_updates))
+    pleaf, pgap = _leaf_gaps(updates, ref_updates, names)
+    out["trainer"] = dict(grad_gap=gap, grad_leaf=leaf, loss_err=lerr, param_err=perr,
+                          update_gap=pgap, update_leaf=pleaf)
+    say(f"two data-parallel Trainer steps (mesh (2, 1), one of 2 rows a rank): grads "
+        f"||d|| / ||g|| {gap:.3g} at worst ({leaf}), |d loss| {lerr:.3g}, params max|d| "
+        f"{perr:.3g} (the two steps' updates ||d|| / ||u|| {pgap:.3g}, {pleaf}) against "
+        f"world size 1's one device")
+    if gap > MESH_TRAIN_ATOL or lerr > MESH_TRAIN_ATOL or perr > MESH_TRAIN_ATOL:
+        raise AssertionError(f"mesh: data-parallel Trainer off: {out['trainer']}")
+    dist.destroy_process_group()
+    log("MESH_WORKER " + json.dumps(out))
+    return 0
+
+
 @contextlib.contextmanager
 def no_gc():
     """Collector pauses land on arbitrary batches and a short stream's p99
@@ -2850,30 +3537,7 @@ def main() -> int:
     flash_checks, ssd_checks = [], []
 
     def check_flash(name, q, k, v, causal=True, window=0, q_offset=0, route=None):
-        """Kernel against plain version within `flash_error`'s limits; the
-        launch must take the route `flash_route` gives (or `route`, forced)."""
-        kw = dict(causal=causal, window=window, q_offset=q_offset)
-        want = route or flash_kernel.flash_route(q.dtype, q.shape[2], q, k, v)
-        before = dict(flash_kernel.launches_by_route)
-        got = flash_kernel.flash_attention_cuda(q, k, v, route=route, **kw)
-        torch.cuda.synchronize()
-        if flash_kernel.launches_by_route != {**before, want: before[want] + 1}:
-            raise AssertionError(f"flash_attention {name}: not launched on the {want} route")
-        ref = attention_ref(q, k, v, **kw)
-        dtype = str(q.dtype).replace("torch.", "")
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash_attention {name}: non-finite output ({want})")
-        e = flash_error(got, ref)
-        said = (f"max|d|={e['max_abs_err']:.3g} (limit {e['atol']:.3g}; max|plain| "
-                f"{e['max_abs_ref']:.3g}), ||d||/||plain||={e['rel_norm']:.3g}"
-                + (f" (limit {FLASH_BF16_RTOL})" if dtype == "bfloat16" else ""))
-        if not flash_within(e, dtype):
-            raise AssertionError(f"flash_attention {name}: {said} ({dtype}, {want})")
-        flash_checks.append(dict(case=name, dtype=dtype, route=want, bh=q.shape[0],
-                                 bhkv=k.shape[0], sq=q.shape[1], skv=k.shape[1], hd=q.shape[2],
-                                 **kw, **e))
-        log(f"kernel check flash_attention {name} {dtype} {want} q{list(q.shape)} "
-            f"kv{list(k.shape)} {kw}: {said}")
+        flash_checks.append(check_flash_call(name, q, k, v, causal, window, q_offset, route))
 
     def check_ssd(name, x, dt, a_log, bm, cm, chunk):
         """y within SSD_ATOL (+ one bf16 ulp when y is bf16), state within
@@ -3624,6 +4288,46 @@ def main() -> int:
     if any(train["launches"].values()):
         raise AssertionError(f"the training path launched a kernel: {train['launches']}")
 
+    # ------------------------------------------------- 14. runtime, 15. mesh
+    # the runtime checks, then the multi-device runtime; each path's launches
+    # are counted from its start (the retrace process and the gloo ranks
+    # count their own and report them)
+    with tempfile.TemporaryDirectory() as mesh_tmp:
+        for mod in kernel_modules.values():
+            mod.launches = 0
+        topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
+        t_runtime = time.perf_counter()
+        runtime = runtime_phase(dev, card, big, native, mesh_tmp)
+        runtime["seconds"] = time.perf_counter() - t_runtime
+        runtime["launches"] = {name: mod.launches for name, mod in kernel_modules.items()}
+        runtime["routes"] = dict(topk_kernel.launches_by_route)
+        log(f"runtime path: {runtime['seconds']:.1f} s, launches "
+            + json.dumps(runtime["launches"]) + ", topk_sim by route "
+            + json.dumps(runtime["routes"]) + "; the retrace process's "
+            + json.dumps(runtime["retrace"]["routes"]))
+        if not runtime["launches"]["topk_sim"] or any(
+                n for name, n in runtime["launches"].items() if name != "topk_sim"):
+            raise AssertionError(f"the runtime path launched {runtime['launches']}")
+        for mod in kernel_modules.values():
+            mod.launches = 0
+        t_mesh = time.perf_counter()
+        mesh = mesh_phase(dev, card, bench, native, q_all, mesh_tmp)
+        mesh["seconds"] = time.perf_counter() - t_mesh
+        mesh["launches"] = {name: mod.launches for name, mod in kernel_modules.items()}
+    log(f"mesh path: {mesh['seconds']:.1f} s, launches " + json.dumps(mesh["launches"])
+        + "; the gloo ranks' " + json.dumps(mesh["gloo_launches"]))
+    if mesh["launches"]["topk_sim"] or mesh["launches"]["ssd_scan"]:
+        raise AssertionError(f"the mesh path launched {mesh['launches']}")
+    # the kernel against its plain version at the mesh path's own prefill
+    # inputs (layer 0 and the last of each model), now that its launches are
+    # read; the gloo ranks checked theirs the same way
+    for name, args, kw in mesh.pop("flash_calls"):
+        check_flash(name, *args, **kw)
+    flash_checks.extend(mesh["gloo_flash_checks"])
+    log("mesh: flash checks on the gloo ranks: " + json.dumps(
+        [{k: c[k] for k in ("case", "max_abs_err", "atol", "rel_norm")}
+         for c in mesh["gloo_flash_checks"]]))
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -3912,7 +4616,8 @@ def main() -> int:
         launches=(main_launches + pool_launches["topk_sim"] + pipe_launches + loop_launches
                   + later_paths["learn"]["launches"] + later_paths["ivf"]["launches"]
                   + launch["launches"]["topk_sim"] + families["pool"]["launches"]["topk"]
-                  + families["launch"]["launches"]["topk"] + train["launches"]["topk_sim"]),
+                  + families["launch"]["launches"]["topk"] + train["launches"]["topk_sim"]
+                  + runtime["launches"]["topk_sim"] + runtime["retrace"]["launches"]),
         max_abs_err=max_err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
         bound_cuda_cores_ms=head["bound_cuda_cores_ms"],
@@ -3927,14 +4632,18 @@ def main() -> int:
                           "launch": launch["launches"]["topk_sim"],
                           "families": families["pool"]["launches"]["topk"],
                           "families_launch": families["launch"]["launches"]["topk"],
-                          "train": train["launches"]["topk_sim"]},
+                          "train": train["launches"]["topk_sim"],
+                          "runtime": runtime["launches"]["topk_sim"],
+                          "retrace": runtime["retrace"]["launches"],
+                          "mesh": mesh["launches"]["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
                            "ivf": later_paths["ivf"]["routes"],
                            "launch": launch["topk_routes"],
                            "families": families["pool"]["topk_routes"],
-                           "families_launch": families["launch"]["topk_routes"]},
+                           "families_launch": families["launch"]["topk_routes"],
+                           "runtime": runtime["routes"], "retrace": runtime["retrace"]["routes"]},
         rescored={"serve": serve_rescored}, launch_shapes=launch_times["topk_sim"],
         crossover=crossover, host_vs_device=host_split,
     ), dict(
@@ -3955,12 +4664,16 @@ def main() -> int:
         launches=(pool_launches["flash_attention"] + launch["launches"]["flash_attention"]
                   + families["pool"]["launches"]["flash"]
                   + families["launch"]["launches"]["flash"]
-                  + train["launches"]["flash_attention"]),
+                  + train["launches"]["flash_attention"] + mesh["launches"]["flash_attention"]
+                  + mesh["gloo_launches"]["flash_attention"]),
         launches_by_path={"pool": pool_launches["flash_attention"],
                           "launch": launch["launches"]["flash_attention"],
                           "families": families["pool"]["launches"]["flash"],
                           "families_launch": families["launch"]["launches"]["flash"],
-                          "train": train["launches"]["flash_attention"]},
+                          "train": train["launches"]["flash_attention"],
+                          "runtime": runtime["launches"]["flash_attention"],
+                          "mesh": mesh["launches"]["flash_attention"],
+                          "mesh_gloo": mesh["gloo_launches"]["flash_attention"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
@@ -3979,7 +4692,9 @@ def main() -> int:
                   + train["launches"]["ssd_scan"]),
         launches_by_path={"pool": pool_launches["ssd_scan"], "launch": launch["launches"]["ssd_scan"],
                           "families": 0, "families_launch": 0,
-                          "train": train["launches"]["ssd_scan"]},
+                          "train": train["launches"]["ssd_scan"],
+                          "runtime": runtime["launches"]["ssd_scan"],
+                          "mesh": mesh["launches"]["ssd_scan"], "mesh_gloo": 0},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
@@ -3999,7 +4714,7 @@ def main() -> int:
                    loop=loop, learn=later_paths["learn"]["summary"],
                    ivf=later_paths["ivf"]["summary"], launch=launch,
                    families={k: v for k, v in families.items() if k != "cross_shapes"},
-                   train=train)
+                   train=train, runtime=runtime, mesh=mesh)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))
@@ -4010,4 +4725,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        import argparse
+
+        ap = argparse.ArgumentParser(description="One gloo rank of phase 15 (b).")
+        ap.add_argument("--mesh-worker", type=int, required=True, dest="rank")
+        ap.add_argument("--port", type=int, required=True)
+        ap.add_argument("--dir", required=True)
+        args = ap.parse_args()
+        sys.exit(mesh_worker(args.rank, args.port, args.dir))
     sys.exit(main())

@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.core.retrieval import NEG_INF, stable_topk
 
-__all__ = ["OutcomeLogs", "collect_outcomes", "masks_from_stream"]
+__all__ = ["OutcomeLogs", "collect_outcomes", "masks_from_topk", "masks_from_stream"]
 
 
 @dataclasses.dataclass
@@ -63,14 +63,32 @@ def collect_outcomes(
         sims = torch.where(candidate_mask > 0, sims, NEG_INF)
     k = min(k, sims.shape[1])  # tool sets smaller than K
     _, topk = stable_topk(sims, k)  # [Q, K]
-    # retrieved_mask[q, t] = 1 iff t in topk(q)
-    retrieved_mask = torch.zeros_like(relevance).scatter_(1, topk, 1.0)
+    pos_mask, neg_mask = masks_from_topk(topk, relevance, positives)
+    return OutcomeLogs(pos_mask=pos_mask, neg_mask=neg_mask, retrieved=topk)
+
+
+def masks_from_topk(
+    topk: torch.Tensor,  # [Q, K] retrieved columns of `relevance`
+    relevance: torch.Tensor,  # [Q, T] binary ground truth
+    positives: str = "ground_truth",
+    valid: Optional[torch.Tensor] = None,  # [Q, K] bool: entries naming a column
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (pos_mask, neg_mask) [Q, T] of a top-K: Q+ by `positives`, Q-
+    the retrieved columns that are not relevant. With `valid`, entries
+    outside it are retrieved elsewhere (a tool-sharded refinement's global
+    top-K, shifted into this rank's columns) and mark nothing."""
+    # retrieved_mask[q, t] = 1 iff t in topk(q); a top-K names a column once
+    if valid is None:
+        retrieved_mask = torch.zeros_like(relevance).scatter_(1, topk, 1.0)
+    else:  # the entries outside `valid` add 0 to column 0
+        retrieved_mask = torch.zeros_like(relevance).scatter_add_(
+            1, torch.where(valid, topk, 0), valid.to(relevance.dtype))
     if positives == "retrieved":
         pos_mask = retrieved_mask * relevance
     else:  # "ground_truth": every labelled-relevant train query counts
         pos_mask = relevance
     neg_mask = retrieved_mask * (1.0 - relevance)  # hard negatives only
-    return OutcomeLogs(pos_mask=pos_mask, neg_mask=neg_mask, retrieved=topk)
+    return pos_mask, neg_mask
 
 
 def masks_from_stream(

@@ -26,7 +26,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.outcomes import collect_outcomes
+from repro_torch.core.outcomes import collect_outcomes, masks_from_topk
 from repro_torch.core.retrieval import NEG_INF, stable_topk
 from repro_torch.metrics.retrieval import batched_ndcg_at_k, batched_recall_at_k
 
@@ -92,7 +92,37 @@ def refine_embeddings(
     With `keep_history` (default) returns [N+1, T, D]: the table after each
     iteration (index 0 = original). With `keep_history=False` returns only
     the final [T, D] table, and the N+1 table copies are never allocated.
+
+    A `tool_emb` DTensor whose rows are sharded over mesh axes (placed by
+    `common.sharding.distribute_rows`, under `use_mesh` of its mesh) is
+    refined a slice a rank, as the reference's update is parallel in T:
+    `relevance` and `candidate_mask` are DTensors sharded on their tool
+    columns the same way, or full tensors; each query's top-K is merged
+    from every slice's own top-K (ties to the lowest tool index, as one
+    `stable_topk` over the whole table), and the result is a DTensor
+    sharded as `tool_emb` is.
     """
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tool_emb, DTensor):
+        return _refine_sharded(tool_emb, query_emb, relevance, candidate_mask, alpha=alpha,
+                               beta=beta, iterations=iterations, momentum=momentum, k=k,
+                               positives=positives, keep_history=keep_history)
+
+    def outcomes(e_prev):
+        logs = collect_outcomes(
+            query_emb, e_prev, relevance, candidate_mask, k=k, positives=positives
+        )
+        return logs.pos_mask, logs.neg_mask
+
+    return _refine_loop(tool_emb, query_emb, outcomes, alpha=alpha, beta=beta,
+                        iterations=iterations, momentum=momentum, keep_history=keep_history)
+
+
+def _refine_loop(tool_emb, query_emb, outcomes, *, alpha, beta, iterations, momentum,
+                 keep_history):
+    """Alg. 1 steps 1-4 over the rows of `tool_emb`; `outcomes(e_prev)`
+    gives the [Q, rows] positive and hard-negative masks of an iteration."""
     history = None
     if keep_history:
         history = torch.zeros((iterations + 1, *tool_emb.shape), dtype=tool_emb.dtype,
@@ -102,12 +132,10 @@ def refine_embeddings(
     for n in range(iterations):
         # Steps 1-2: outcome logs against *current* embeddings — each pass
         # exposes the new hard negatives created by the previous update.
-        logs = collect_outcomes(
-            query_emb, e_prev, relevance, candidate_mask, k=k, positives=positives
-        )
+        pos_mask, neg_mask = outcomes(e_prev)
         # Step 3: centroid interpolation (Eq. 7)
-        pos_c, pos_n = _masked_centroid(logs.pos_mask, query_emb)
-        neg_c, neg_n = _masked_centroid(logs.neg_mask, query_emb)
+        pos_c, pos_n = _masked_centroid(pos_mask, query_emb)
+        neg_c, neg_n = _masked_centroid(neg_mask, query_emb)
         e_hat = (1.0 - alpha) * e_prev + alpha * pos_c
         e_hat = e_hat - beta * (neg_n > 0).to(e_hat.dtype)[:, None] * neg_c
         e_hat = _unit_rows(e_hat)
@@ -122,6 +150,50 @@ def refine_embeddings(
             history[n + 1] = e_new
         e_prev = e_new
     return history if keep_history else e_prev
+
+
+def _refine_sharded(tool_emb, query_emb, relevance, candidate_mask, *, k, positives,
+                    keep_history, **kw):
+    """`refine_embeddings` on this rank's rows of a row-sharded DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common import meshctx, sharding
+
+    mesh = meshctx.current_mesh()
+    if mesh is None or mesh.device_mesh is not tool_emb.device_mesh:
+        raise RuntimeError("a sharded tool table is refined under use_mesh of its mesh")
+    spec = sharding.dtensor_spec(tool_emb, mesh)
+    if any(spec[1:]):
+        raise ValueError(f"the tool table may shard its rows only, not {spec}")
+    n_tools = tool_emb.shape[0]
+    lo, hi = sharding.block_bounds(mesh, spec[0], n_tools)
+    col_spec = (None, spec[0])
+
+    def columns(x):  # this rank's tool columns of a [Q, T] mask
+        if x is None:
+            return None
+        return x.to_local() if isinstance(x, DTensor) else x[:, lo:hi]
+
+    e_local, rel, cmask = tool_emb.to_local(), columns(relevance), columns(candidate_mask)
+    k = min(k, n_tools)  # tool sets smaller than K
+
+    def outcomes(e_prev):
+        sims = query_emb @ e_prev.T  # [Q, rows]
+        if cmask is not None:
+            sims = torch.where(cmask > 0, sims, NEG_INF)
+        # each slice's own top-K, merged in slice order: a stable sort keeps
+        # equal scores lowest global index first
+        vals, idx = stable_topk(sims, min(k, hi - lo))
+        vals = sharding.gather_shards(vals, col_spec, mesh)
+        idx = sharding.gather_shards(idx + lo, col_spec, mesh)
+        order = torch.sort(vals, dim=-1, descending=True, stable=True).indices[:, :k]
+        top = torch.gather(idx, 1, order)  # [Q, K] global tool ids
+        return masks_from_topk(top - lo, rel, positives, valid=(top >= lo) & (top < hi))
+
+    out = _refine_loop(e_local, query_emb, outcomes, keep_history=keep_history, **kw)
+    out_spec = ((None,) + spec) if keep_history else spec
+    shape = (kw["iterations"] + 1, *tool_emb.shape) if keep_history else tool_emb.shape
+    return sharding.from_local(out, mesh, out_spec, shape)
 
 
 def _gate_metric_at_k(

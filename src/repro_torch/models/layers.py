@@ -4,8 +4,10 @@ cross-attention.
 
 Counterpart of `repro/models/layers.py`, with the same shapes and casts.
 Parameters arrive as sub-dicts of the trees made in `repro_torch.models.
-model`. The JAX package's logical sharding constraints are dropped: the
-port runs on one device. Prefill attention (`attn_block`) goes through
+model`. The JAX package's logical sharding constraints are dropped: they
+change no value, and the kernels take plain tensors; under a mesh,
+`attn_decode` hands seq-sharded decode to `decode_shard_map`. Prefill
+attention (`attn_block`) goes through
 `kernels.flash_attention.ops.flash_attention` (the hand-written kernel on
 the card), which computes what `gqa_attention` computes under
 `_causal_mask(s, s, 0, window)` (the port builds that mask in the kernel's
@@ -26,6 +28,7 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import meshctx
 from repro_torch.core.retrieval import stable_topk
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.config import ModelConfig
@@ -150,13 +153,23 @@ def attn_decode(
     """One-token decode against a (possibly ring-buffered) KV cache.
 
     The new key and value are written into `cache_k` / `cache_v` in place
-    (the JAX version returns updated copies); both are returned.
+    (the JAX version returns updated copies); both are returned. With
+    `cfg.decode_attn == "seq_shard"` under a mesh with a "model" axis, the
+    cache holds this rank's W/m slots and `decode_shard_map` attends.
     """
     b = x.shape[0]
     w = cache_k.shape[1]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _qkv(p, x, cfg, positions)
+    if cfg.decode_attn == "seq_shard":
+        mesh = meshctx.current_mesh()
+        if mesh is not None and "model" in mesh.axis_names:
+            from repro_torch.models.decode_shard_map import attn_decode_seq_sharded
+
+            out, cache_k, cache_v = attn_decode_seq_sharded(
+                cfg, q, k, v, cache_k, cache_v, pos)
+            return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
     # the slot of the new entry, clamped into the buffer as
     # lax.dynamic_update_slice clamps its start index
     slot = min(pos % w if cfg.sliding_window else pos, w - 1)

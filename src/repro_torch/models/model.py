@@ -16,6 +16,12 @@ Program surface:
   decode_step(cfg, params, cache, batch)       — updates `cache` in place
 The VLM's batches carry "image_embeds" [B, I, d_model] (the stubbed
 vision tower's patch embeddings); codebook models take tokens [B, S, K].
+
+Under an active mesh (`common.meshctx.use_mesh`) every rank runs these
+programs on its rows of the batch: `cfg.moe_impl == "shard_map"` takes the
+expert-parallel MoE (`moe_shard_map`) and `cfg.decode_attn == "seq_shard"`
+the seq-sharded decode attention (`decode_shard_map`), as the reference
+picks them.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch.utils.checkpoint
 from repro_torch.models import layers as lyr
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe_shard_map import moe_block_shard_map
 from repro_torch.models.params import ParamSpec as PS
 from repro_torch.models.params import init_params
 
@@ -233,7 +240,8 @@ def _ffn(cfg: ModelConfig, lp, x):
     h = lyr.rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.arch_type != "moe":
         return x + lyr.swiglu(lp["mlp"], h), None
-    y, aux = lyr.moe_block(lp["moe"], h, cfg)
+    moe_fn = moe_block_shard_map if cfg.moe_impl == "shard_map" else lyr.moe_block
+    y, aux = moe_fn(lp["moe"], h, cfg)
     if cfg.dense_residual:
         y = y + lyr.swiglu(lp["mlp"], h)
     return x + y, aux

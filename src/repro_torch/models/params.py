@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -45,20 +45,23 @@ def tree_leaves(tree: Any, prefix: str = ""):
         yield prefix[:-1], tree
 
 
-def _init_leaf(spec: ParamSpec, generator: torch.Generator, dtype, device) -> torch.Tensor:
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init == "embed":
-        scale = 0.02
-    elif spec.init == "small":
-        scale = 1e-4
+def _init_leaf(spec: ParamSpec, generator: torch.Generator, dtype, device,
+               cut: Optional[Callable] = None) -> torch.Tensor:
+    if spec.init in ("zeros", "ones"):
+        x = torch.full(spec.shape, float(spec.init == "ones"), dtype=dtype, device=device)
     else:
-        fan_in = float(math.prod(spec.shape[d] for d in spec.fan_in_dims)) or 1.0
-        scale = 1.0 / math.sqrt(fan_in)
-    x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * scale).to(dtype)
+        if spec.init == "embed":
+            scale = 0.02
+        elif spec.init == "small":
+            scale = 1e-4
+        else:
+            fan_in = float(math.prod(spec.shape[d] for d in spec.fan_in_dims)) or 1.0
+            scale = 1.0 / math.sqrt(fan_in)
+        x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
+        x.mul_(scale)
+    if cut is not None:  # a view: the cast below copies only what is kept
+        x = cut(spec, x)
+    return x.to(dtype).contiguous()
 
 
 def init_params(
@@ -66,16 +69,19 @@ def init_params(
     generator: torch.Generator,
     dtype: Union[str, torch.dtype] = torch.float32,
     device: Union[str, torch.device, None] = None,
+    cut: Optional[Callable[[ParamSpec, torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, Any]:
     """Parameters for `specs`, drawn in float32 from `generator` (which must
-    live on `device`) and cast to `dtype`; leaves in sorted-key order."""
+    live on `device`) and cast to `dtype`; leaves in sorted-key order.
+    `cut(spec, x)`, where given, keeps the part of each drawn leaf this
+    process holds, before the cast (the draw is the same either way)."""
     device = resolve_device(device)
     dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
     def build(tree):
         if isinstance(tree, dict):
             return {k: build(tree[k]) for k in sorted(tree)}
-        return _init_leaf(tree, generator, dtype, device)
+        return _init_leaf(tree, generator, dtype, device, cut)
 
     return build(specs)
 

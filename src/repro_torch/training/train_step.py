@@ -12,7 +12,7 @@ new leaves, as the reference's pure step returns new params. No
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -51,18 +51,29 @@ def choose_optimizer(cfg: ModelConfig, tc: TrainConfig) -> optim.Optimizer:
 
 
 def make_train_step(
-    cfg: ModelConfig, tc: TrainConfig = TrainConfig()
+    cfg: ModelConfig, tc: TrainConfig = TrainConfig(),
+    mean: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None,
 ) -> Tuple[Callable, optim.Optimizer]:
     """Returns (train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), optimizer). `metrics` holds 0-dim tensors: "loss", "ce",
     "aux" and "grad_norm" (before clipping); reading one waits for the
-    device, which the step itself never does."""
+    device, which the step itself never does.
+
+    `mean` (data parallelism: `Trainer(mesh=)` passes it) takes a list of
+    tensors, this rank's gradients and metrics, and returns their means
+    over the data ranks; the step applies it before the clip, so every
+    rank clips and updates the same gradients."""
     optimizer = choose_optimizer(cfg, tc)
 
     def train_step(params, opt_state, batch):
         loss, metrics = M.loss_fn(cfg, params, batch)
         leaves = tree_leaves(params)
-        grads = iter(torch.autograd.grad(loss, leaves))
+        grads = list(torch.autograd.grad(loss, leaves))
+        if mean is not None:
+            names = sorted(metrics)
+            reduced = mean(grads + [metrics[n].detach() for n in names])
+            grads, metrics = reduced[:len(grads)], dict(zip(names, reduced[len(grads):]))
+        grads = iter(grads)
         grads = optim.tree_map(lambda _: next(grads), params)
         with torch.no_grad():
             grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip)

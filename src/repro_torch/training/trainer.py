@@ -1,8 +1,14 @@
 """Training loop: metrics, checkpointing, determinism.
 
-Counterpart of `repro/training/trainer.py`, on one device: `device=`
-takes the place of the reference's `mesh=` (None means the CUDA card,
-which raises without one; the tests pass "cpu"). The model is
+Counterpart of `repro/training/trainer.py`. `device=` None means the CUDA
+card, which raises without one; the tests pass "cpu". `mesh=` (a
+`common.meshctx.Mesh`; every rank of its process group builds the same
+Trainer) makes the step data-parallel, as the reference's `mesh=` lays the
+batch over the data axes: each rank takes its rows of every batch (by
+`spec_for(("batch", ...))`), and the gradients and metrics are averaged
+over the batch's mesh axes (`RULES["batch"]`) before the clip, so every
+rank holds the single-device step's params; the step runs under
+`use_mesh(mesh)`, and rank 0 writes the checkpoint. The model is
 `M.init(cfg, ...)` drawn from a CPU generator seeded with `tcfg.seed` and
 copied to the device, so one seed names one model on the card and on the
 CPU (the JAX package's `PRNGKey` draws other numbers: a test that holds
@@ -16,14 +22,17 @@ and field, so it reads a checkpoint that the JAX `Trainer` wrote.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.msgpack_ckpt import restore_checkpoint, save_checkpoint
+from repro_torch.common import meshctx, sharding
 from repro_torch.common.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -70,16 +79,54 @@ class Trainer:
         cfg: ModelConfig,
         tcfg: TrainerConfig,
         device: Union[str, torch.device, None] = None,
+        mesh: Optional[meshctx.Mesh] = None,
     ):
         self.cfg = cfg
         self.tcfg = tcfg
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
-        self.step_fn, self.optimizer = make_train_step(cfg, tcfg.train)
+        self.step_fn, self.optimizer = make_train_step(
+            cfg, tcfg.train, mean=None if mesh is None else self._data_mean)
         params = M.init(cfg, torch.Generator().manual_seed(tcfg.seed), "cpu")
         self.params = tree_map(lambda p: p.to(self.device).requires_grad_(), params)
         self.opt_state = self.optimizer.init(self.params)
         self.step = 0
         self.history: List[Dict[str, float]] = []
+
+    def _data_axes(self) -> tuple:
+        return tuple(a for a in sharding.RULES["batch"] if a in self.mesh.axis_names)
+
+    def _data_mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each tensor's mean over the data ranks: one float32 all-reduce of
+        them all, cast back to each tensor's dtype."""
+        axes = self._data_axes()
+        flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+        flat = self.mesh.psum(flat, axes) / self.mesh.axes_size(axes)
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+            at += t.numel()
+        return out
+
+    def _rows(self, x: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a batch array, on the device."""
+        x = torch.from_numpy(np.asarray(x))
+        if self.mesh is not None:
+            spec = sharding.spec_for(("batch",) + (None,) * (x.dim() - 1),
+                                     self.mesh.axis_names, x.shape,
+                                     meshctx.axis_sizes_dict(self.mesh))
+            x = sharding.local_shard(x, spec, self.mesh)
+        return x.to(self.device)
+
+    def _mesh_ctx(self):
+        """Activation of the configured mesh (no-op when None)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return meshctx.use_mesh(self.mesh)
 
     def restore(self, directory: Optional[str] = None):
         d = directory or self.tcfg.ckpt_dir
@@ -90,21 +137,26 @@ class Trainer:
         self.step = step
 
     def save(self):
+        if self.mesh is not None and dist.get_rank() != 0:
+            dist.barrier()  # rank 0 writes; the others wait for the file
+            return
         save_checkpoint(
             self.tcfg.ckpt_dir,
             self.step,
             {"params": self.params, "opt_state": self.opt_state},
             meta={"arch": self.cfg.name, "step": self.step},
         )
+        if self.mesh is not None:
+            dist.barrier()
 
     def fit(self, batches: Iterator[Dict[str, np.ndarray]], log: Callable = print):
         t0 = time.time()
         for _ in range(self.tcfg.steps):
-            batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                     for k, v in next(batches).items()}
-            self.params, self.opt_state, metrics = self.step_fn(
-                self.params, self.opt_state, batch
-            )
+            batch = {k: self._rows(v) for k, v in next(batches).items()}
+            with self._mesh_ctx():
+                self.params, self.opt_state, metrics = self.step_fn(
+                    self.params, self.opt_state, batch
+                )
             self.step += 1
             if self.step % self.tcfg.log_every == 0 or self.step == 1:
                 m = {k: float(v) for k, v in metrics.items()}

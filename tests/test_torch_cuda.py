@@ -1130,3 +1130,78 @@ def test_forward_with_grad_requiring_params_raises_on_the_card(cuda_device):
     trained, _ = M.forward(cfg, params, batch, use_kernel=False)
     assert trained.grad_fn is not None
     torch.testing.assert_close(served, trained.detach(), atol=1e-3, rtol=1e-3)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A world-size-1 NCCL process group in this process and its (1, 1)
+    ("data", "model") mesh; destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.common import meshctx
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield meshctx.make_mesh((1, 1), ("data", "model"), cuda_device)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_map_moe_on_nccl_world_one_equals_gspmd(cuda_device, nccl_mesh):
+    """At one rank the expert-parallel dispatch holds every expert and its
+    all-reduce copies: the logits and the aux loss equal moe_block's."""
+    import dataclasses
+
+    from repro_torch.common import meshctx
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced
+    from repro_torch.models.moe_shard_map import shard_expert_params
+
+    cfg = reduced(get_config("dbrx-132b"))
+    params = M.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64))).to(cuda_device)
+    with torch.no_grad():
+        ref, ref_aux = M.forward(cfg, params, {"tokens": tokens})
+        with meshctx.use_mesh(nccl_mesh):
+            got, aux = M.forward(dataclasses.replace(cfg, moe_impl="shard_map"),
+                                 shard_expert_params(cfg, params, nccl_mesh), {"tokens": tokens})
+    torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux, ref_aux, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "hymba-1.5b"])
+def test_seq_sharded_decode_on_nccl_world_one_equals_baseline(cuda_device, nccl_mesh, arch):
+    """decode_attn="seq_shard" under a (1, 1) mesh: the flash-decoding
+    combine over one rank's W slots gives the baseline decode's logits
+    (reference tolerance 2e-3) and cache."""
+    import dataclasses
+
+    from repro_torch.common import meshctx, sharding
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import reduced
+    from repro_torch.models.decode_shard_map import shard_decode_cache
+
+    cfg = reduced(get_config(arch))
+    params = M.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    b, s = 2, 32
+    shape = (b, s, cfg.n_codebooks) if cfg.n_codebooks else (b, s)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, shape))
+    toks = toks.to(cuda_device)
+    with torch.no_grad():
+        _, cache = M.prefill(cfg, params, {"tokens": toks[:, :s - 1]}, max_cache_len=s)
+        seq = dataclasses.replace(cfg, decode_attn="seq_shard")
+        with meshctx.use_mesh(nccl_mesh), sharding.set_policy("tp_kvs"):
+            local = shard_decode_cache(seq, cache, nccl_mesh)
+            got, local = M.decode_step(seq, params, local, {"token": toks[:, s - 1:], "pos": s - 1})
+        ref, cache = M.decode_step(cfg, params, cache, {"token": toks[:, s - 1:], "pos": s - 1})
+    torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+    torch.testing.assert_close(local["k"], cache["k"], atol=1e-3, rtol=0)

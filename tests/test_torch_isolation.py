@@ -61,7 +61,11 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.optim.adafactor", "repro_torch.optim.sgd",
             "repro_torch.optim.schedules", "repro_torch.data.lm_data",
             "repro_torch.training", "repro_torch.training.train_step",
-            "repro_torch.training.trainer", "repro_torch.launch.train"} <= set(modules)
+            "repro_torch.training.trainer", "repro_torch.launch.train",
+            "repro_torch.analysis", "repro_torch.analysis.retrace",
+            "repro_torch.analysis.lockgraph", "repro_torch.common.meshctx",
+            "repro_torch.common.sharding", "repro_torch.models.moe_shard_map",
+            "repro_torch.models.decode_shard_map"} <= set(modules)
     blocked = ("jax", "repro", "msgpack", "zstandard")
     code = (
         "import importlib, sys, tempfile\n"
