@@ -207,6 +207,34 @@ package `repro`. Phases, each of which fails the run by raising:
                data-parallel Trainer steps of full-width hymba-1.5b (2
                layers, float32) on a (2, 1) mesh, gradients, losses and
                params within 1e-4 of (a)'s one device;
+ 16. dryrun  — (run before 7) the dry-run (`repro_torch.launch.dryrun`,
+               fake tensors over a fake process group) against the card.
+               (a) Three programs at world size 1 (`--mesh 1x1`), each
+               first dry-run in a process of its own, then run on the card
+               on seeded bf16 tensors with the plain attention and scan
+               (`use_kernel=False`, as the dry-run's): full-width hymba-1.5b's
+               AdamW train step on 2 x 1,024 tokens (phase 13's, no remat,
+               from the d_model fan-in), its 2,048-token prefill at batch 1
+               and a decode step with that cache. The dry-run's FLOPs a
+               device must equal FlopCounterMode's on the card exactly, its
+               peak (argument + temp + output bytes) must be within
+               DRYRUN_MEMORY_GAP of `max_memory_allocated()` from a reset
+               with the inputs placed, less what earlier phases still
+               hold (both printed), and the card's ms
+               (CUDA events between syncs, median of DRYRUN_TIME_ROUNDS) is
+               printed beside the roofline terms, their ratio the
+               program's roofline share (recorded, no limit). (c) The
+               same three as DTensor programs on the card over the (1, 1)
+               mesh of an NCCL group of one (the partitioner's path:
+               `common.sharding`'s project / blockwise / token_nll and the
+               constraint points): the dry-run's own `CostMode` counts
+               their FLOPs on the card, equal to the dry-run's, the peak
+               within DRYRUN_MEMORY_GAP, no collective. (b) The
+               production meshes, host-only (DRYRUN_PRODUCTION, processes
+               of their own started with the phase, `--no-probe`): each
+               must exit 0 and write its record; its FLOPs and argument
+               bytes a device, collectives by kind and dominant term are
+               printed. No kernel launches on this path;
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -391,6 +419,26 @@ MESH_REFINE_ATOL = 1e-5  # tests/test_distributed.py's refinement tolerance
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ = 2, 512  # hymba-1.5b full width, float32, batch 2
 MESH_TRAIN_ATOL = 1e-4  # grads (||d|| / ||ref|| a leaf), losses and params (max|d|)
 MESH_WORKER_TIMEOUT_S = 600
+# the dry-run against the card (phase 16): (a) world-size-1 programs of
+# full-width hymba-1.5b, (kind, the dry-run's shape, global batch, tokens);
+# the decode step reads the prefill's cache (2,049 slots, windowed to 1,024)
+DRYRUN_ARCH = "hymba-1.5b"
+DRYRUN_PROGRAMS = (("train", "train_4k", 2, 1024), ("prefill", "prefill_32k", 1, 2048),
+                   ("decode", "decode_32k", 1, 2049))
+DRYRUN_MEMORY_GAP = 0.10  # |card peak - dry-run peak| / card peak
+DRYRUN_TIME_ROUNDS = 3
+DRYRUN_SEED = 0
+# (b) the production meshes, host-only: (arch, shapes, mesh, more arguments)
+DRYRUN_PRODUCTION = (
+    ("qwen2.5-3b", "train_4k,prefill_32k,decode_32k", "single", ()),
+    ("hymba-1.5b", "long_500k", "single", ()),
+    ("dbrx-132b", "prefill_32k", "single", ("--moe-impl", "shard_map")),
+    ("musicgen-medium", "decode_32k", "single", ("--decode-attn", "seq_shard",
+                                                 "--policy", "tp_kvs")),
+    ("llama-3.2-vision-90b", "prefill_32k", "single", ()),
+    ("hymba-1.5b", "long_500k", "multi", ()),
+)
+DRYRUN_TIMEOUT_S = 420
 
 
 def log(*parts) -> None:
@@ -3321,6 +3369,280 @@ def unit_rows(n, d, gen):
     return (x / x.norm(dim=1, keepdim=True)).contiguous()
 
 
+# ----------------------------------------------------------------- 16. dryrun
+
+
+def _dryrun_cmd(arch, shapes, mesh, more, out_dir):
+    """`python -m repro_torch.launch.dryrun` in a process of its own that
+    cannot see the card (the dry-run is host-only)."""
+    argv = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+            shapes, "--mesh", mesh, "--no-probe", "--out", str(out_dir), *more]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen(argv, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _dryrun_wait(proc, what):
+    """The process's output; raises unless it exits 0 within the limit."""
+    try:
+        out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"dryrun: {what} ran past {DRYRUN_TIMEOUT_S} s")
+    lines = [line for line in out.splitlines() if line.startswith(("OK ", "FAIL "))]
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun: {what} exited {proc.returncode}:\n{out[-4000:]}")
+    return lines
+
+
+def _dryrun_record(out_dir, arch, shape, mesh):
+    with open(Path(out_dir) / f"{arch}__{shape}__{mesh}.json") as f:
+        return json.load(f)
+
+
+def _card_arguments(kind, cfg, shape, dev):
+    """Seeded real arguments of phase 16's program on the card, in the
+    layout of the dry-run's structs: bf16 params from the d_model fan-in
+    (train: requiring grad, with AdamW's state), int32 tokens, and for the
+    decode the cache of a prefill of the same model."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.optim.base import tree_map
+    from repro_torch.training.train_step import TrainConfig, choose_optimizer
+
+    gen = torch.Generator(device=dev).manual_seed(DRYRUN_SEED)
+    with torch.no_grad():
+        params = M.attention_at_d_model_fan_in(cfg, M.init(cfg, gen, device=dev))
+    tokens = lambda s: torch.randint(0, cfg.vocab_size, (shape.global_batch, s),  # noqa: E731
+                                     generator=gen, device=dev, dtype=torch.int32)
+    if kind == "train":
+        params = tree_map(lambda p: p.detach().requires_grad_(), params)
+        opt = choose_optimizer(cfg, TrainConfig(optimizer="adamw"))
+        return params, opt.init(params), {"tokens": tokens(shape.seq_len)}
+    if kind == "prefill":
+        return params, {"tokens": tokens(shape.seq_len)}
+    with torch.no_grad():
+        _, cache = M.prefill(cfg, params, {"tokens": tokens(shape.seq_len - 1)},
+                             max_cache_len=shape.seq_len, use_kernel=False)
+    return params, cache, {"token": tokens(1), "pos": shape.seq_len - 1}
+
+
+def _as_dtensors(args, structs):
+    """The real arguments `args` as DTensors in the layout of the dry-run's
+    `structs` (this rank's blocks: at world size 1 the whole tensors)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_map
+
+    def wrap(t, struct):
+        if not isinstance(struct, DTensor):
+            return t
+        if tuple(t.shape) != tuple(struct.to_local().shape):
+            raise AssertionError(f"dryrun (c): an argument of shape {tuple(t.shape)} for a "
+                                 f"block of {tuple(struct.to_local().shape)}")
+        x = DTensor.from_local(t.detach(), struct.device_mesh, struct.placements,
+                               run_check=False, shape=struct.shape, stride=struct.stride())
+        return x.requires_grad_() if struct.requires_grad else x
+
+    return tree_map(wrap, args, structs, is_leaf=lambda x: isinstance(x, torch.Tensor))
+
+
+def _dryrun_dtensor_leg(dev, card, one_dir, backend="nccl"):
+    """Phase 16 (c): DRYRUN_PROGRAMS as DTensor programs on the card, over
+    the (1, 1) mesh of an NCCL group of one: the dry-run's partitioner
+    (`common.sharding`'s project / blockwise / token_nll, the constraint
+    points, DTensor's dispatch) on real bf16 tensors, its FLOPs counted by
+    the dry-run's own `CostMode` and required to equal the dry-run's
+    records (`--mesh 1x1`), its peak `max_memory_allocated()` within
+    DRYRUN_MEMORY_GAP of the dry-run's, no collective issued."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.common import meshctx
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.training.train_step import TrainConfig
+
+    out = {}
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = meshctx.make_mesh((1, 1), ("data", "model"), dev)
+        for kind, name, b, s in DRYRUN_PROGRAMS:
+            shape = D.resolve_shape(name, s, b)
+            rec = _dryrun_record(one_dir, DRYRUN_ARCH, shape.name, "1x1")
+            cfg = get_config(DRYRUN_ARCH)
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            fn, structs = D.build_program(cfg, shape, mesh, TrainConfig(optimizer="adamw"),
+                                          remat=False)
+            args = _as_dtensors(_card_arguments(kind, cfg, shape, dev), structs)
+            del structs
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() - before
+            cost, colls, mem, seconds = D.run_program(fn, args, mesh, fake=False)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            del args, fn
+            gc.collect()
+            torch.cuda.empty_cache()
+            want = rec["per_device"]
+            predicted = want["argument_bytes"] + want["temp_bytes"] + want["output_bytes"]
+            gap = (peak - predicted) / peak
+            row = dict(shape=shape.name, dryrun_flops=want["flops"], card_flops=cost.flops,
+                       dryrun_peak_bytes=predicted, card_peak_bytes=peak, gap=gap,
+                       card_argument_bytes=base, card_counted_peak_bytes=(
+                           mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]),
+                       collectives=colls.count_by_type, seconds=seconds)
+            out[kind] = row
+            log(f"dryrun (c) ({kind}, {DRYRUN_ARCH} {shape.name}, DTensor on a (1, 1) NCCL "
+                f"mesh): FLOPs dry-run {row['dryrun_flops']:.6e} card {row['card_flops']:.6e}; "
+                f"peak bytes dry-run {predicted:,} card {peak:,} (argument {base:,}; counted "
+                f"on the card {row['card_counted_peak_bytes']:,}), gap {gap:+.4f} (limit "
+                f"{DRYRUN_MEMORY_GAP}); collectives {json.dumps(colls.count_by_type)}; "
+                f"{seconds:.1f} s; {card}")
+            if row["dryrun_flops"] != row["card_flops"]:
+                raise AssertionError(f"dryrun (c) ({kind}): FLOPs {row['dryrun_flops']} "
+                                     f"against the card's {row['card_flops']}")
+            if not abs(gap) <= DRYRUN_MEMORY_GAP:
+                raise AssertionError(f"dryrun (c) ({kind}): peak {predicted} against the "
+                                     f"card's {peak} (gap {gap:+.4f}, limit {DRYRUN_MEMORY_GAP})")
+            if any(colls.count_by_type.values()):
+                raise AssertionError(f"dryrun (c) ({kind}): collectives at world size 1: "
+                                     f"{colls.count_by_type}")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dryrun_phase(dev, card, tmp):
+    """Phase 16: the dry-run against the card. (a) DRYRUN_PROGRAMS at world
+    size 1: each dry-run in a process of its own, then the same program on
+    the card (FLOPs equal, peak memory within DRYRUN_MEMORY_GAP, ms beside
+    the roofline terms); (c) the same as DTensor programs on the card
+    (`_dryrun_dtensor_leg`); (b) DRYRUN_PRODUCTION on the production meshes,
+    host-only, each exiting 0 with its record. Returns the summary; raises
+    on any failed check."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.training.train_step import TrainConfig
+
+    out = {"card": card, "programs": {}, "production": {}}
+    prod_dir, one_dir = Path(tmp) / "production", Path(tmp) / "one"
+    t0 = time.perf_counter()
+    # (b)'s processes first: they need no card and run beside (a)
+    production = [(row, _dryrun_cmd(row[0], row[1], row[2], row[3], prod_dir))
+                  for row in DRYRUN_PRODUCTION]
+    ones = {kind: _dryrun_cmd(DRYRUN_ARCH, name, "1x1",
+                              ("--global-batch", str(b), "--seq-len", str(s), "--no-remat",
+                               "--optimizer", "adamw"), one_dir)
+            for kind, name, b, s in DRYRUN_PROGRAMS}
+
+    # ---- (a) world size 1: the prediction against the card
+    for kind, name, b, s in DRYRUN_PROGRAMS:
+        _dryrun_wait(ones[kind], f"{DRYRUN_ARCH} {kind} at world size 1")
+        shape = D.resolve_shape(name, s, b)
+        rec = _dryrun_record(one_dir, DRYRUN_ARCH, shape.name, "1x1")
+        cfg = get_config(DRYRUN_ARCH)
+        fn, _ = D.build_program(cfg, shape, None, TrainConfig(optimizer="adamw"), remat=False)
+        del _
+        gc.collect()
+        torch.cuda.empty_cache()
+        # what earlier phases still hold is not this program's
+        before = torch.cuda.memory_allocated()
+        args = _card_arguments(kind, cfg, shape, dev)
+        fn(*args)  # warm-up: cuBLAS handles and workspaces
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() - before
+        with FlopCounterMode(display=False) as counter:
+            res = fn(*args)
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        del res
+        ms = []
+        for _ in range(DRYRUN_TIME_ROUNDS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            res = fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            del res
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem = rec["per_device"]
+        predicted = mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]
+        gap = (peak - predicted) / peak
+        terms = rec["roofline"]
+        card_ms = float(np.median(ms))
+        row = dict(shape=shape.name, dryrun_flops=mem["flops"], card_flops=counter.get_total_flops(),
+                   dryrun_peak_bytes=predicted, card_peak_bytes=peak, gap=gap,
+                   dryrun_argument_bytes=mem["argument_bytes"], card_argument_bytes=base,
+                   card_held_before_bytes=before,
+                   temp_bytes=mem["temp_bytes"], output_bytes=mem["output_bytes"],
+                   card_ms=card_ms, card_ms_rounds=ms, compute_ms=terms["compute_s"] * 1e3,
+                   memory_ms=terms["memory_s"] * 1e3,
+                   memory_upper_ms=terms["memory_upper_s"] * 1e3,
+                   roofline_share=max(terms["compute_s"], terms["memory_s"]) * 1e3 / card_ms,
+                   dominant=terms["dominant"], dryrun_seconds=rec["compile_s"])
+        out["programs"][kind] = row
+        log(f"dryrun ({kind}, {DRYRUN_ARCH} {shape.name}, world size 1): FLOPs dry-run "
+            f"{row['dryrun_flops']:.6e} card {row['card_flops']:.6e}; peak bytes dry-run "
+            f"{predicted:,} (argument {mem['argument_bytes']:,} + temp {mem['temp_bytes']:,} + "
+            f"output {mem['output_bytes']:,}) card {peak:,} (argument {base:,}; earlier "
+            f"phases still held {before:,} beside it, not counted), gap "
+            f"{gap:+.4f} (limit {DRYRUN_MEMORY_GAP}); card {card_ms:.3f} ms (rounds "
+            + ", ".join(f"{m:.3f}" for m in ms) + f") against roofline compute "
+            f"{row['compute_ms']:.3f} ms, memory {row['memory_ms']:.3f} ms (op-level upper "
+            f"{row['memory_upper_ms']:.3f} ms), share {row['roofline_share']:.4f}, dominant "
+            f"{row['dominant']}; the dry-run ran {row['dryrun_seconds']:.1f} s on the host; {card}")
+        if row["dryrun_flops"] != row["card_flops"]:
+            raise AssertionError(f"dryrun ({kind}): FLOPs {row['dryrun_flops']} against the "
+                                 f"card's {row['card_flops']}")
+        if not abs(gap) <= DRYRUN_MEMORY_GAP:
+            raise AssertionError(f"dryrun ({kind}): peak {predicted} against the card's {peak} "
+                                 f"(gap {gap:+.4f}, limit {DRYRUN_MEMORY_GAP})")
+
+    # ---- (c) the same programs as DTensors on the card, over an NCCL group of one
+    out["dtensor"] = _dryrun_dtensor_leg(dev, card, one_dir)
+
+    # ---- (b) the production meshes, host-only
+    for (arch, shapes, mesh_kind, more), proc in production:
+        lines = _dryrun_wait(proc, f"{arch} {shapes} {mesh_kind} {' '.join(more)}")
+        for shape_name in shapes.split(","):
+            rec = _dryrun_record(prod_dir, arch, shape_name, mesh_kind)
+            mem, colls = rec["per_device"], rec["collectives"]
+            key = f"{arch} x {shape_name} x {mesh_kind}" + (f" {' '.join(more)}" if more else "")
+            out["production"][key] = dict(
+                flops=mem["flops"], argument_bytes=mem["argument_bytes"],
+                peak_bytes=mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"],
+                collectives=colls["count_by_type"], collective_bytes=colls["bytes_by_type"],
+                dominant=rec["roofline"]["dominant"], repeat_kv=rec["repeat_kv"],
+                replicated_views=len(rec["replicated_views"]), seconds=rec["compile_s"])
+            log(f"dryrun ({key}, {rec['chips']} ranks): flops/dev {mem['flops']:.4e}, argument "
+                f"bytes/dev {mem['argument_bytes']:,}, collectives "
+                + json.dumps(colls["count_by_type"]) + f", dominant "
+                f"{rec['roofline']['dominant']}, repeat_kv {rec['repeat_kv']}, "
+                f"{len(rec['replicated_views'])} replicated views, {rec['compile_s']:.1f} s")
+        out["production_lines"] = out.get("production_lines", []) + lines
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4328,6 +4650,17 @@ def main() -> int:
         [{k: c[k] for k in ("case", "max_abs_err", "atol", "rel_norm")}
          for c in mesh["gloo_flash_checks"]]))
 
+    # -------------------------------------------------------------- 16. dryrun
+    # the dry-run's predictions against the card; no kernel may launch
+    for mod in kernel_modules.values():
+        mod.launches = 0
+    with tempfile.TemporaryDirectory() as dryrun_tmp:
+        dryrun = dryrun_phase(dev, card, dryrun_tmp)
+    dryrun["launches"] = {name: mod.launches for name, mod in kernel_modules.items()}
+    log(f"dryrun path: {dryrun['seconds']:.1f} s, launches " + json.dumps(dryrun["launches"]))
+    if any(dryrun["launches"].values()):
+        raise AssertionError(f"the dry-run path launched a kernel: {dryrun['launches']}")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -4635,7 +4968,8 @@ def main() -> int:
                           "train": train["launches"]["topk_sim"],
                           "runtime": runtime["launches"]["topk_sim"],
                           "retrace": runtime["retrace"]["launches"],
-                          "mesh": mesh["launches"]["topk_sim"]},
+                          "mesh": mesh["launches"]["topk_sim"],
+                          "dryrun": dryrun["launches"]["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
@@ -4650,7 +4984,8 @@ def main() -> int:
         name="topk_sim (select route)", route="cuda",
         source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=pipe_routes["select"],
-        launches_by_path={"pipeline": pipe_routes["select"], "train": train["launches"]["topk_sim"]},
+        launches_by_path={"pipeline": pipe_routes["select"], "train": train["launches"]["topk_sim"],
+                          "dryrun": dryrun["launches"]["topk_sim"]},
         max_abs_err=max(c["max_abs_err"] for c in checks if c["route"] == "select"),
         ms=sel_ms, plain_ms=sel_plain, bound_ms=sel_bound, bound_by=sel_by, library_ms=sel_lib,
         shape=[64, table_native.shape[0], sel_q.shape[1], sel_k], rounds_ms=sel_rounds,
@@ -4673,7 +5008,8 @@ def main() -> int:
                           "train": train["launches"]["flash_attention"],
                           "runtime": runtime["launches"]["flash_attention"],
                           "mesh": mesh["launches"]["flash_attention"],
-                          "mesh_gloo": mesh["gloo_launches"]["flash_attention"]},
+                          "mesh_gloo": mesh["gloo_launches"]["flash_attention"],
+                          "dryrun": dryrun["launches"]["flash_attention"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
@@ -4694,7 +5030,8 @@ def main() -> int:
                           "families": 0, "families_launch": 0,
                           "train": train["launches"]["ssd_scan"],
                           "runtime": runtime["launches"]["ssd_scan"],
-                          "mesh": mesh["launches"]["ssd_scan"], "mesh_gloo": 0},
+                          "mesh": mesh["launches"]["ssd_scan"], "mesh_gloo": 0,
+                          "dryrun": dryrun["launches"]["ssd_scan"]},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
@@ -4714,7 +5051,7 @@ def main() -> int:
                    loop=loop, learn=later_paths["learn"]["summary"],
                    ivf=later_paths["ivf"]["summary"], launch=launch,
                    families={k: v for k, v in families.items() if k != "cross_shapes"},
-                   train=train, runtime=runtime, mesh=mesh)
+                   train=train, runtime=runtime, mesh=mesh, dryrun=dryrun)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

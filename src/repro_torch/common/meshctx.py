@@ -25,7 +25,13 @@ over the ranks that differ only along them, on the tensors' own device (a
 gloo group takes CUDA tensors for every op here), and a collective that
 fails raises.
 
-`cost_analysis_dict` reads an XLA executable and has no counterpart yet.
+`cost_analysis_dict(fn, *args)` is the counterpart of the reference's
+`cost_analysis_dict(compiled)`, with the same keys ("flops", "bytes
+accessed"). The reference reads them off an XLA executable without
+running it; the port has no executable, so it runs `fn(*args)` under a
+counting dispatch mode (`CostMode`): on fake tensors (the dry-run) nothing
+is computed or allocated. Under DTensors it counts the ops each rank runs
+on its local blocks, per device as the reference's numbers are.
 """
 from __future__ import annotations
 
@@ -40,6 +46,8 @@ import torch.distributed as dist
 from repro_torch.common.device import resolve_device
 
 __all__ = [
+    "CostMode",
+    "cost_analysis_dict",
     "Mesh",
     "current_mesh",
     "use_mesh",
@@ -200,3 +208,191 @@ def make_mesh(
 def axis_sizes_dict(mesh: Mesh) -> dict:
     """{axis name: size}."""
     return dict(mesh.shape)
+
+
+# ------------------------------------------------------------------- costs
+
+_SHAPE_QUERIES = None
+
+
+def _shape_queries() -> frozenset:
+    aten = torch.ops.aten
+    return frozenset({
+        aten.sym_is_contiguous.default, aten.is_contiguous.default,
+        aten.is_contiguous.memory_format, aten.is_strides_like_format.default,
+        aten.is_non_overlapping_and_dense.default, aten.size.default,
+        aten.sym_size.default, aten.stride.default, aten.sym_stride.default,
+        aten.storage_offset.default, aten.sym_storage_offset.default,
+        aten.numel.default, aten.sym_numel.default, aten.dim.default,
+        torch.ops.prim.layout.default})
+
+
+def _tensors(tree) -> list:
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class CostMode:
+    """Per-device costs of the ops run inside `with CostMode() as c:`.
+
+    `flops` counts as `torch.utils.flop_counter.FlopCounterMode` does (its
+    formula registry, composite ops decomposed first), but only the ops on
+    plain tensors: under DTensors those are each rank's ops on its local
+    blocks, while FlopCounterMode would count the global DTensor op as well.
+    `bytes_accessed` sums the input and output bytes of every such aten op
+    that is not a view (collectives and metadata queries are not counted):
+    the fusion-naive upper bound the reference reads off XLA's CPU backend.
+    DTensor's sharding propagation runs each new op once on fake tensors of
+    the global shapes to learn its output's metadata; those runs are no
+    device's work and are not counted. With `track_memory`, `peak_bytes` is
+    the largest total of live storages the block allocated (each storage
+    counted once, freed when its last tensor dies): `watch(tree)` first
+    marks the arguments' storages, which are then never counted.
+    """
+
+    def __init__(self, track_memory: bool = False):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils.flop_counter import flop_registry
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        global _SHAPE_QUERIES
+        if _SHAPE_QUERIES is None:
+            _SHAPE_QUERIES = _shape_queries()
+        self.flops = 0
+        self.bytes_accessed = 0
+        self.track_memory = track_memory
+        self.live_bytes = 0
+        self.peak_bytes = 0
+        self._seen = WeakIdKeyDictionary()  # storage -> bytes (0 for arguments)
+        self._muted = 0  # inside DTensor's metadata propagation
+        self._unpatch = None
+        owner = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                if func in _SHAPE_QUERIES:
+                    return NotImplemented
+                if owner._muted:
+                    return func(*args, **kwargs)
+                if owner._is_dtensor_call(types):
+                    # let DTensor run first: its local ops come back here
+                    return NotImplemented
+                if func not in flop_registry and func is not torch.ops.prim.device.default:
+                    with self:
+                        r = func.decompose(*args, **kwargs)
+                        if r is not NotImplemented:
+                            return r
+                out = func(*args, **kwargs)
+                packet = func._overloadpacket
+                if packet in flop_registry:
+                    owner.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+                if func.namespace == "aten" and not func.is_view:
+                    owner.bytes_accessed += sum(
+                        t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
+                if owner.track_memory:
+                    for t in _tensors(out):
+                        owner._allocated(t)
+                return out
+
+        self._mode = _Mode()
+
+    @staticmethod
+    def _is_dtensor_call(types) -> bool:
+        from torch.distributed.tensor import DTensor
+
+        return any(issubclass(t, DTensor) for t in types)
+
+    @staticmethod
+    def _storage(t: torch.Tensor):
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            t = t._local_tensor
+        return t.untyped_storage()
+
+    def watch(self, tree) -> int:
+        """Mark the storages of `tree`'s tensors (local blocks of DTensors)
+        as arguments; returns their bytes, each storage once."""
+        total = 0
+        for t in _tensors(tree):
+            st = self._storage(t)
+            if st not in self._seen:
+                self._seen[st] = 0
+                total += st.nbytes()
+        return total
+
+    def new_bytes(self, tree) -> int:
+        """Bytes of the storages of `tree`'s tensors that the block
+        allocated (not arguments), each storage once."""
+        seen, total = set(), 0
+        for t in _tensors(tree):
+            st = self._storage(t)
+            if self._seen.get(st, 0) and id(st) not in seen:
+                seen.add(id(st))
+                total += self._seen[st]
+        return total
+
+    def allocated(self, tree) -> None:
+        """Count the storages of `tree`'s tensors as allocated here (made
+        while muted, as a collective's output is)."""
+        if self.track_memory:
+            for t in _tensors(tree):
+                self._allocated(t)
+
+    def _allocated(self, t: torch.Tensor) -> None:
+        import weakref
+
+        st = t.untyped_storage()
+        if st in self._seen:
+            return
+        n = st.nbytes()
+        self._seen[st] = n
+        self.live_bytes += n
+        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+        weakref.finalize(st, self._freed, n)
+
+    def _freed(self, n: int) -> None:
+        self.live_bytes -= n
+
+    @contextlib.contextmanager
+    def muted(self):
+        """Nothing run inside the block is counted (DTensor's bookkeeping)."""
+        self._muted += 1
+        try:
+            yield
+        finally:
+            self._muted -= 1
+
+    def __enter__(self) -> "CostMode":
+        from torch.distributed.tensor._sharding_prop import ShardingPropagator
+
+        meta = ShardingPropagator._propagate_tensor_meta_non_cached
+
+        def muted(prop, *args, **kwargs):
+            with self.muted():
+                return meta(prop, *args, **kwargs)
+
+        ShardingPropagator._propagate_tensor_meta_non_cached = muted
+
+        def unpatch():
+            ShardingPropagator._propagate_tensor_meta_non_cached = meta
+        self._unpatch = unpatch
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            return self._mode.__exit__(*exc)
+        finally:
+            self._unpatch()
+
+
+def cost_analysis_dict(fn, *args) -> dict:
+    """{"flops", "bytes accessed"} of `fn(*args)` per device, counted by
+    running it under `CostMode` (the reference reads them off its compiled
+    program instead; see the module docstring)."""
+    with CostMode() as cost:
+        fn(*args)
+    return {"flops": float(cost.flops), "bytes accessed": float(cost.bytes_accessed)}

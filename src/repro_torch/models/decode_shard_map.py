@@ -10,6 +10,11 @@ all-reduce of the local maxima, then two SUM all-reduces (denominator,
 weighted V). Only the owner of the current ring slot writes the new key and
 value; validity is in global slot coordinates.
 
+On DTensors (the dry-run) the function is the reference's `shard_map`
+whole: q, k, v and the cache are redistributed to its in-specs (rows over
+the data axes; the cache's slots over "model") and the output comes back
+as a DTensor under its out-spec.
+
 `shard_decode_cache` cuts this rank's block out of a full decode cache
 (`M.prefill`'s) by `decode_cache_specs`, and `gather_decode_cache` puts the
 blocks together again.
@@ -42,6 +47,14 @@ def attn_decode_seq_sharded(
     """(out [B_l, 1, H, hd], cache_k, cache_v) under the active mesh; the
     owner's cache slices are written in place and returned."""
     mesh = meshctx.current_mesh()
+    if isinstance(q, sharding.DTensor):  # the shard_map's edges
+        rows = sharding.spec_for(("batch",), mesh.axis_names, q.shape[:1],
+                                 meshctx.axis_sizes_dict(mesh))[0]
+        act, slots = (rows, None, None, None), (rows, "model", None, None)
+        out, _, _ = attn_decode_seq_sharded(
+            cfg, *(sharding.to_local_block(t, act, mesh) for t in (q, k, v)),
+            *(sharding.to_local_block(t, slots, mesh) for t in (cache_k, cache_v)), pos)
+        return sharding.from_local_block(out, act, mesh, q), cache_k, cache_v
     w_local = cache_k.shape[1]
     w_global = w_local * mesh.shape["model"]
     hd = q.shape[-1]

@@ -4,21 +4,24 @@ cross-attention.
 
 Counterpart of `repro/models/layers.py`, with the same shapes and casts.
 Parameters arrive as sub-dicts of the trees made in `repro_torch.models.
-model`. The JAX package's logical sharding constraints are dropped: they
-change no value, and the kernels take plain tensors; under a mesh,
-`attn_decode` hands seq-sharded decode to `decode_shard_map`. Prefill
-attention (`attn_block`) goes through
-`kernels.flash_attention.ops.flash_attention` (the hand-written kernel on
-the card), which computes what `gqa_attention` computes under
-`_causal_mask(s, s, 0, window)` (the port builds that mask in the kernel's
-plain version, `kernels/flash_attention/ref.py::attention_mask`);
-single-token decode (`attn_decode`) keeps the plain `gqa_attention` over
-its ring-buffer mask, as the JAX decode runs outside any Pallas kernel.
-`moe_block` keeps the reference's capacity-based scatter dispatch, its
-router top-k in `lax.top_k`'s tie order (`stable_topk`) and its expert
-products as batched einsums. `cross_attn_block` attends the image K/V
-through the flash-attention kernel with `causal=False`, in prefill and in
-single-token decode alike (the reference's all-ones mask).
+model`. Activation sharding goes through `common.sharding.
+logical_constraint` at the reference's points, with its logical axes: a
+no-op on plain tensors and outside a mesh, a redistribution of a DTensor
+under one (the dry-run, `launch/dryrun.py`); under a mesh, `attn_decode`
+hands seq-sharded decode to `decode_shard_map`.
+
+Attention has two paths. The kernel path (`use_kernel=True`, or None on
+the card) hands heads-major copies to
+`kernels.flash_attention.ops.flash_attention`, the hand-written kernel,
+which computes what `gqa_attention` computes under the same mask. The
+plain path (`use_kernel=False`, or None on the CPU) is the reference's:
+`gqa_attention` on [B, S, H, hd] under the kernel's own `attention_mask` (the cross layer's
+all-ones mask), which keeps the batch and heads dimensions apart, as a
+DTensor sharded on both needs. Single-token decode (`attn_decode`) always
+takes `gqa_attention` over its ring-buffer mask, as the JAX decode runs
+outside any Pallas kernel. `moe_block` keeps the reference's
+capacity-based scatter dispatch, its router top-k in `lax.top_k`'s tie
+order (`stable_topk`) and its expert products as batched einsums.
 """
 from __future__ import annotations
 
@@ -29,8 +32,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common import meshctx
+from repro_torch.common import sharding as shard_lib
+from repro_torch.common.sharding import logical_constraint as shard
+from repro_torch.common.sharding import blockwise, project
 from repro_torch.core.retrieval import stable_topk
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.models.config import ModelConfig
 
 __all__ = [
@@ -69,12 +76,37 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     return out.to(x.dtype)
 
 
+def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
+    """[B, T, Hkv, hd] -> [B, T, Hkv*g, hd], each KV head g times in a row
+    (`jnp.repeat(t, g, axis=2)`), as an expand and a reshape, which DTensor
+    partitions without gathering the batch."""
+    b, t_len, hkv, hd = t.shape
+    return t[:, :, :, None, :].expand(b, t_len, hkv, g, hd).reshape(b, t_len, hkv * g, hd)
+
+
 def gqa_attention(
     q: torch.Tensor,  # [B, S, H, hd]
     k: torch.Tensor,  # [B, T, Hkv, hd]
     v: torch.Tensor,  # [B, T, Hkv, hd]
     mask: torch.Tensor,  # [B or 1, S, T] boolean (True = attend)
+    repeat_kv: bool = False,
 ) -> torch.Tensor:
+    """Grouped-query attention. `repeat_kv` materialises K and V per q head
+    first (the reference's `repeat_kv` form), so that they shard over the
+    heads with q where the KV heads cannot. Rows and heads are independent,
+    so on DTensors each rank attends its block (`sharding.blockwise`; the
+    mask is whole)."""
+    g = q.shape[2] // k.shape[2]
+    if repeat_kv and g > 1:
+        k = shard(_repeat_heads(k, g), "batch", None, "heads", None)
+        v = shard(_repeat_heads(v, g), "batch", None, "heads", None)
+    # K and V split over the mesh axes of q's heads (blockwise raises where
+    # the KV heads cannot follow: then repeat_kv)
+    axes = ("batch", None, "heads", None)
+    return blockwise(_attend, (q, k, v, mask), (axes, axes, axes, None), (axes,))
+
+
+def _attend(q, k, v, mask):
     b, s, h, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, h // hkv, hd)
@@ -86,14 +118,23 @@ def gqa_attention(
 
 
 def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])  # [B,S,H,hd]
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])  # [B,S,Hkv,hd]
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project("bsd,dhk->bshk", x, p["wq"])  # [B,S,H,hd]
+    k = project("bsd,dhk->bshk", x, p["wk"])  # [B,S,Hkv,hd]
+    v = project("bsd,dhk->bshk", x, p["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta), v
+    q = shard(rope(q, positions, cfg.rope_theta), "batch", None, "heads", None)
+    k = shard(rope(k, positions, cfg.rope_theta), "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
+    return q, k, v
+
+
+def _kernel_path(use_kernel: Optional[bool], x: torch.Tensor) -> bool:
+    """`use_kernel` resolved: None takes the kernel on the card only (the
+    kernel op raises for any other device)."""
+    return x.device.type == "cuda" if use_kernel is None else bool(use_kernel)
 
 
 def _heads_major(t: torch.Tensor) -> torch.Tensor:
@@ -112,17 +153,21 @@ def attn_block(
     max_cache_len: int = 0,
     use_kernel: Optional[bool] = None,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
-    """Full-sequence causal attention (train / prefill). `use_kernel` goes
-    to `flash_attention`: None picks the path by device, False the plain
-    version (training's, which carries gradients)."""
+    """Full-sequence causal attention (train / prefill). `use_kernel`: True
+    takes the flash-attention kernel, False the plain `gqa_attention`
+    (training's, which carries gradients), None the kernel on the card."""
     b, s, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     h, hd = q.shape[2], q.shape[3]
-    # query row b*H + h reads key/value row (b*H + h) // g = b*Hkv + h // g
-    out = flash_attention(_heads_major(q), _heads_major(k), _heads_major(v),
-                          causal=True, window=cfg.sliding_window, use_kernel=use_kernel)
-    out = out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if _kernel_path(use_kernel, x):
+        # query row b*H + h reads key/value row (b*H + h) // g = b*Hkv + h // g
+        out = flash_attention(_heads_major(q), _heads_major(k), _heads_major(v),
+                              causal=True, window=cfg.sliding_window, use_kernel=True)
+        out = out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    else:
+        mask = attention_mask(s, s, True, cfg.sliding_window, 0, x.device)[None]
+        out = gqa_attention(q, k, v, mask, repeat_kv=cfg.repeat_kv)
+    out = shard(project("bshk,hkd->bsd", out, p["wo"]), "batch", "act_seq", None)
     if not return_cache:
         return out
     # prefill: build the decode cache [B, W, Hkv, hd].
@@ -169,7 +214,8 @@ def attn_decode(
 
             out, cache_k, cache_v = attn_decode_seq_sharded(
                 cfg, q, k, v, cache_k, cache_v, pos)
-            return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache_k, cache_v
+            out = project("bshk,hkd->bsd", out, p["wo"])
+            return shard(out, "batch", None, None), cache_k, cache_v
     # the slot of the new entry, clamped into the buffer as
     # lax.dynamic_update_slice clamps its start index
     slot = min(pos % w if cfg.sliding_window else pos, w - 1)
@@ -178,16 +224,15 @@ def attn_decode(
     # validity: ring slots written so far; keys keep absolute-position RoPE
     last = min(pos, w - 1) if cfg.sliding_window else pos
     mask = (torch.arange(w, device=x.device) <= last)[None, None, :]  # [1, 1, W]
-    out = gqa_attention(q, cache_k, cache_v, mask)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
-    return out, cache_k, cache_v
+    out = gqa_attention(q, cache_k, cache_v, mask, repeat_kv=cfg.repeat_kv)
+    out = project("bshk,hkd->bsd", out, p["wo"])
+    return shard(out, "batch", None, None), cache_k, cache_v
 
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(torch.einsum("bsd,df->bsf", x, p["w_gate"])) * torch.einsum(
-        "bsd,df->bsf", x, p["w_up"]
-    )
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    h = F.silu(project("bsd,df->bsf", x, p["w_gate"])) * project("bsd,df->bsf", x, p["w_up"])
+    h = shard(h, "batch", None, "ff")
+    return shard(project("bsf,fd->bsd", h, p["w_down"]), "batch", "act_seq", None)
 
 
 # --------------------------------------------------------------------------
@@ -239,19 +284,23 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     logits, probs, top_w, top_e, keep, target = moe_route(p, xt, cfg)
 
     data = xt.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
-    buffers = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buffers.index_add_(0, target, data)
-    buf = buffers[: e * cap].reshape(e, cap, d)
+    buffers = shard_lib.scatter_rows(e * cap + 1, target, data)
+    buf = shard(buffers[: e * cap].reshape(e, cap, d), "experts", None, None)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", buf, p["w_up"]
     )
+    h = shard(h, "experts", None, "ff")
     out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e * cap, d)
     out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))], dim=0)
+    # the gather-back reads global rows of the expert-sharded buffer: the
+    # reference pins it replicated first, and so does the port
+    out_buf = shard(out_buf, None, None)
 
     gathered = out_buf[target]  # [T*k, D]
     w = (top_w.reshape(-1) * keep).to(x.dtype)
     y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
+    y = shard(y, "batch", "act_seq", None)
 
     # Switch-style load-balance loss + router z-loss
     frac_tokens = F.one_hot(top_e[:, 0], e).float().mean(dim=0)
@@ -276,17 +325,22 @@ def cross_attn_block(
 ) -> torch.Tensor:
     """x + tanh(g_a)*xattn + tanh(g_f)*ffn — the vision-conditioning layer.
 
-    Every text position attends every image token: the flash-attention
-    kernel with `causal=False` and no window, over heads-major copies of
-    q and of the image K/V (S = 1 in decode). `use_kernel` as in
+    Every text position attends every image token (S = 1 in decode): on
+    the kernel path the flash-attention kernel with `causal=False` and no
+    window over heads-major copies of q and of the image K/V, on the plain
+    path `gqa_attention` under an all-ones mask. `use_kernel` as in
     `attn_block`."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
+    q = shard(project("bsd,dhk->bshk", h, p["wq"]), "batch", None, "heads", None)
     b, s, nh, hd = q.shape
-    out = flash_attention(_heads_major(q), _heads_major(img_k), _heads_major(img_v),
-                          causal=False, window=0, use_kernel=use_kernel)
-    out = out.reshape(b, nh, s, hd).permute(0, 2, 1, 3)
-    out = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    if _kernel_path(use_kernel, x):
+        out = flash_attention(_heads_major(q), _heads_major(img_k), _heads_major(img_v),
+                              causal=False, window=0, use_kernel=True)
+        out = out.reshape(b, nh, s, hd).permute(0, 2, 1, 3)
+    else:
+        mask = torch.ones((1, s, img_k.shape[1]), dtype=torch.bool, device=x.device)
+        out = gqa_attention(q, img_k, img_v, mask, repeat_kv=cfg.repeat_kv)
+    out = project("bshk,hkd->bsd", out, p["wo"])
     x = x + torch.tanh(p["gate_attn"]) * out
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + torch.tanh(p["gate_ffn"]) * swiglu(p["mlp"], h)
@@ -294,6 +348,6 @@ def cross_attn_block(
 
 def cross_attn_kv(p: dict, img_embeds: torch.Tensor, cfg: ModelConfig):
     """Project (stubbed) vision-tower patch embeddings to K/V once."""
-    k = torch.einsum("bid,dhk->bihk", img_embeds, p["wk"])
-    v = torch.einsum("bid,dhk->bihk", img_embeds, p["wv"])
-    return k, v
+    k = project("bid,dhk->bihk", img_embeds, p["wk"])
+    v = project("bid,dhk->bihk", img_embeds, p["wv"])
+    return shard(k, "batch", None, "kv_heads", None), shard(v, "batch", None, "kv_heads", None)

@@ -21,7 +21,9 @@ Under an active mesh (`common.meshctx.use_mesh`) every rank runs these
 programs on its rows of the batch: `cfg.moe_impl == "shard_map"` takes the
 expert-parallel MoE (`moe_shard_map`) and `cfg.decode_attn == "seq_shard"`
 the seq-sharded decode attention (`decode_shard_map`), as the reference
-picks them.
+picks them. The programs also run on DTensors (the dry-run,
+`launch/dryrun.py`): the reference's sharding constraints are
+`common.sharding.logical_constraint` calls, no-ops on plain tensors.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.common import sharding as shard_lib
+from repro_torch.common.sharding import logical_constraint as shard
 from repro_torch.models import layers as lyr
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
@@ -220,17 +224,19 @@ def _embed_tokens(cfg: ModelConfig, params, batch) -> torch.Tensor:
     if cfg.n_codebooks:
         # musicgen: sum the K codebook embeddings (tokens [B, S, K])
         offsets = torch.arange(cfg.n_codebooks, device=tokens.device) * cfg.vocab_size
-        return params["embed"][tokens + offsets].sum(dim=2)
-    return params["embed"][tokens]
+        tokens = tokens + offsets
+    x = shard_lib.lookup_rows(params["embed"], tokens)
+    if cfg.n_codebooks:
+        x = x.sum(dim=2)
+    return shard(x, "batch", "act_seq", None)
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = lyr.rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = torch.einsum("bsd,dv->bsv", x, head)
+    logits = shard_lib.project("bsd,dv->bsv", x, head)
     if cfg.n_codebooks:
-        b, s, _ = logits.shape
-        logits = logits.reshape(b, s, cfg.n_codebooks, cfg.vocab_size)
+        logits = shard_lib.unflatten(logits, 2, (cfg.n_codebooks, cfg.vocab_size))
     return logits
 
 
@@ -259,17 +265,18 @@ def _self_layer(cfg: ModelConfig, lp, x, positions, max_cache_len: int = 0,
             return (x + ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel),
                     out_cache, None)
         out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
-            lp["ssm"], h, cfg, return_cache=True)
+            lp["ssm"], h, cfg, return_cache=True, use_kernel=use_kernel)
         return x + out, out_cache, None
     if return_cache:
         attn_out, (out_cache["k"], out_cache["v"]) = lyr.attn_block(
-            lp["attn"], h, cfg, positions, return_cache=True, max_cache_len=max_cache_len)
+            lp["attn"], h, cfg, positions, return_cache=True, max_cache_len=max_cache_len,
+            use_kernel=use_kernel)
     else:
         attn_out = lyr.attn_block(lp["attn"], h, cfg, positions, use_kernel=use_kernel)
     if cfg.hybrid:
         if return_cache:
             s_out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
-                lp["ssm"], h, cfg, return_cache=True)
+                lp["ssm"], h, cfg, return_cache=True, use_kernel=use_kernel)
         else:
             s_out = ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel)
         attn_out = 0.5 * (attn_out + s_out)
@@ -351,9 +358,7 @@ def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, to
     any device, as the reference's does."""
     logits, aux = forward(cfg, params, batch, use_kernel=False)
     targets = batch["tokens"][:, 1:].long()
-    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    ce = nll.mean()
+    ce = shard_lib.token_nll(logits[:, :-1], targets).mean()
     loss = ce + aux
     return loss, {"ce": ce, "aux": aux, "loss": loss}
 
@@ -395,12 +400,14 @@ def cache_spec(cfg: ModelConfig, batch_size: int, seq_len: int) -> Dict[str, Any
 
 
 def prefill(
-    cfg: ModelConfig, params, batch, max_cache_len: int = 0
+    cfg: ModelConfig, params, batch, max_cache_len: int = 0,
+    use_kernel: Optional[bool] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Process the full prompt; return last-position logits + decode cache.
 
     `max_cache_len` sizes the full-attention KV cache for subsequent decode
     steps (defaults to prompt length + 1; windowed/SSM caches are fixed-size).
+    `use_kernel` as in `forward`.
     Cache entries are stacked over self layers: [L_self, B, ...]; the VLM's
     `img_k` / `img_v` over cross layers: [G, B, I, Hkv, hd].
     """
@@ -416,29 +423,35 @@ def prefill(
     for kind, i in _stack_order(cfg):
         if kind == "cross":
             x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg,
-                                     cache["img_k"][i], cache["img_v"][i])
+                                     cache["img_k"][i], cache["img_v"][i],
+                                     use_kernel=use_kernel)
             continue
         x, entries, _ = _self_layer(cfg, _layer(params["layers"], i), x, positions,
-                                    max_cache_len=max_cache_len, return_cache=True)
+                                    max_cache_len=max_cache_len, return_cache=True,
+                                    use_kernel=use_kernel)
         for k, v in entries.items():
             per_layer.setdefault(k, []).append(v)
     cache.update({k: torch.stack(v) for k, v in per_layer.items()})
     return _logits(cfg, params, x[:, -1:]), cache
 
 
-def decode_step(cfg: ModelConfig, params, cache, batch):
+def decode_step(cfg: ModelConfig, params, cache, batch,
+                use_kernel: Optional[bool] = None):
     """One-token decode. batch = {"token": [B,1(,K)], "pos": int}.
 
     Returns (logits [B,1,(K,)V], cache). The cache's tensors are updated in
     place and returned in the same dict (the JAX version returns copies);
-    the VLM's `img_k` / `img_v` are read, never written.
+    the VLM's `img_k` / `img_v` are read, never written. `use_kernel` goes
+    to the cross layers' attention, as in `forward` (the self layers'
+    decode attention is always the plain one).
     """
     x = _embed_tokens(cfg, params, {"tokens": batch["token"]})
     pos = int(batch["pos"])
     for kind, i in _stack_order(cfg):
         if kind == "cross":
             x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg,
-                                     cache["img_k"][i], cache["img_v"][i])
+                                     cache["img_k"][i], cache["img_v"][i],
+                                     use_kernel=use_kernel)
             continue
         lp = _layer(params["layers"], i)
         lc = {k: v[i] for k, v in cache.items() if k not in ("img_k", "img_v")}

@@ -22,6 +22,12 @@ its token and probability sums are all-reduced over the data axes.
 The dispatch is forward-only (prefill, decode, evaluation): its collectives
 carry no gradient, so grad-requiring inputs raise, as the kernel ops do.
 Training takes `moe_impl="gspmd"`.
+
+On DTensors (the dry-run) the block is the reference's `shard_map`
+whole: x is redistributed to its in-spec (rows over the data axes,
+replicated over "model"), the router replicated and the expert weights
+to ("model", None, None), the body runs on this rank's blocks, and y
+comes back as a DTensor under the out-spec.
 """
 from __future__ import annotations
 
@@ -94,6 +100,14 @@ def moe_block_shard_map(p: dict, x: torch.Tensor,
     mesh = meshctx.current_mesh()
     if mesh is None or "model" not in mesh.axis_names:
         return layers.moe_block(p, x, cfg)  # no TP axis
+    if isinstance(x, sharding.DTensor):  # the shard_map's edges
+        rows = (sharding.spec_for(("batch",), mesh.axis_names, x.shape[:1],
+                                  meshctx.axis_sizes_dict(mesh))[0], None, None)
+        local = {"router": sharding.to_local_block(p["router"], (None, None), mesh)}
+        for n in EXPERT_WEIGHTS:
+            local[n] = sharding.to_local_block(p[n], ("model", None, None), mesh)
+        y, aux = moe_block_shard_map(local, sharding.to_local_block(x, rows, mesh), cfg)
+        return sharding.from_local_block(y, rows, mesh, x), aux
     if torch.is_grad_enabled() and (x.requires_grad or any(
             w.requires_grad for w in p.values())):
         raise ValueError("moe_block_shard_map is forward-only: its collectives carry no "

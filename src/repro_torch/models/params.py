@@ -4,9 +4,11 @@ Every model declares its parameters as a nested dict of `ParamSpec`s
 (shape + logical axes + init kind); `init_params` draws them from one
 `torch.Generator`. The init kinds and scales are those of the JAX package;
 the numbers differ, because the generators do (tests that compare the two
-packages carry the JAX parameters across with `repro_torch.convert`). The
-logical axes are kept for the multi-device slice; on one device nothing
-reads them.
+packages carry the JAX parameters across with `repro_torch.convert`).
+From the same spec tree come the DTensor placements of each leaf
+(`param_shardings`) and the dry-run's structs (`param_structs`: fake
+tensors, DTensors of this rank's block under a mesh), so init, sharding
+and dry-run shapes cannot diverge.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 
 from repro_torch.common.device import resolve_device
 
-__all__ = ["ParamSpec", "init_params", "param_count", "tree_leaves"]
+__all__ = ["ParamSpec", "init_params", "param_shardings", "param_structs", "param_count",
+           "tree_leaves", "map_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +87,29 @@ def init_params(
         return _init_leaf(tree, generator, dtype, device, cut)
 
     return build(specs)
+
+
+def map_specs(fn: Callable[[ParamSpec], Any], specs: SpecTree) -> Dict[str, Any]:
+    """`fn` of every ParamSpec leaf, in the tree's shape."""
+    if isinstance(specs, dict):
+        return {k: map_specs(fn, v) for k, v in specs.items()}
+    return fn(specs)
+
+
+def param_shardings(mesh, specs: SpecTree):
+    """(mesh, DTensor placements) of every leaf (`sharding.named_sharding`)."""
+    from repro_torch.common.sharding import named_sharding
+
+    return map_specs(lambda s: named_sharding(mesh, s.axes, s.shape), specs)
+
+
+def param_structs(specs: SpecTree, dtype=torch.float32, mesh=None, requires_grad=False):
+    """A struct (`sharding.struct`) of every leaf: a fake tensor, a DTensor
+    of this rank's block under `mesh`; `requires_grad` for a train step."""
+    from repro_torch.common.sharding import struct
+
+    dtype = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return map_specs(lambda s: struct(mesh, s.axes, s.shape, dtype, requires_grad), specs)
 
 
 def param_count(specs: SpecTree) -> int:

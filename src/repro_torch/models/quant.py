@@ -9,16 +9,22 @@ rule is the reference's, bit for bit: per output channel (over axis -2),
 then *stored* as bf16. Matrix leaves (ndim >= 2, both trailing dims >= 64)
 quantize; norms, biases and small tensors pass through unchanged.
 
-The reference's `quantized_structs` and `quantized_bytes` serve the mesh
-substrate's dry runs and are not ported with this module.
+`quantized_structs` gives the dry-run's int8 param tree (codes and scales
+as structs, `common.sharding.struct`), and `quantized_bytes` the analytic
+resident weight bytes after quantization.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import math
+
 import torch
 
-__all__ = ["should_quantize", "quantize_tree", "dequantize_tree"]
+from repro_torch.models.params import ParamSpec, map_specs, tree_leaves
+
+__all__ = ["should_quantize", "quantize_tree", "dequantize_tree", "quantized_structs",
+           "quantized_bytes"]
 
 
 def should_quantize(shape: Tuple[int, ...]) -> bool:
@@ -57,3 +63,31 @@ def quantize_tree(params: Dict[str, Any]) -> Dict[str, Any]:
 
 def dequantize_tree(qparams: Dict[str, Any], dtype=torch.bfloat16) -> Dict[str, Any]:
     return _map(lambda leaf: _dequant_leaf(leaf, dtype), qparams, is_leaf=_is_qleaf)
+
+
+def quantized_structs(specs, mesh=None, dtype=torch.bfloat16):
+    """Structs of the quantized param tree (dry-run input): int8 codes and
+    bf16 scales [..., 1, out] for the leaves that quantize, `dtype` for
+    the rest; each under its leaf's logical axes."""
+    from repro_torch.common.sharding import struct
+
+    def leaf(s: ParamSpec):
+        if should_quantize(s.shape):
+            scale_shape = s.shape[:-2] + (1,) + s.shape[-1:]
+            return {"q": struct(mesh, s.axes, s.shape, torch.int8),
+                    "scale": struct(mesh, s.axes, scale_shape, torch.bfloat16)}
+        return struct(mesh, s.axes, s.shape, dtype)
+
+    return map_specs(leaf, specs)
+
+
+def quantized_bytes(specs) -> int:
+    """Analytic resident weight bytes after int8 quantization."""
+    total = 0
+    for _, s in tree_leaves(specs):
+        n = math.prod(s.shape)
+        if should_quantize(s.shape):
+            total += n + 2 * n // s.shape[-2]  # int8 + bf16 scales
+        else:
+            total += 2 * n
+    return total

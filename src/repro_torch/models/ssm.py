@@ -2,13 +2,16 @@
 
 Counterpart of `repro/models/ssm.py`, with the same shapes and casts:
 chunked SSD for prefill, exact O(1)-state recurrent decode. The JAX
-package's `lax.scan` over chunk states is a loop here, and its sharding
-constraints are dropped (one device). `ssm_block` computes the scan through
+package's `lax.scan` over chunk states is a loop here. `ssm_block` computes the scan through
 `kernels.ssd_scan.ops.ssd_scan` (the hand-written kernel on the card);
 `ssd_chunked` is the plain version that the op serves on the CPU.
 
 Shapes follow the paper: x [B,S,H,P], dt [B,S,H], A [H] (log-parametrized),
 B/C [B,S,G,N] with G groups broadcast over heads.
+
+The reference's two sharding constraints (the scan's input over
+"ssm_heads", the block's output over the batch) are
+`common.sharding.logical_constraint` calls: no-ops on plain tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.sharding import logical_constraint as shard
+from repro_torch.common.sharding import blockwise, project
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -107,6 +112,18 @@ def _split_zxbcdt(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return z, xbc, dt
 
 
+_HEADS = ("batch", None, "ssm_heads", None)
+_ROWS = ("batch", None, None, None)
+
+
+def _scan(xs, dt, a_log, b_mat, c_mat, cfg: ModelConfig, use_kernel):
+    """`ssd_scan` of one block of rows and SSM heads (the whole scan on
+    plain tensors). B and C stay whole: with one group every head reads it."""
+    if b_mat.shape[2] > 1 and xs.shape[2] != cfg.ssm_heads:
+        raise ValueError("the SSD scan splits its heads only with one B/C group")
+    return ssd_ops.ssd_scan(xs, dt, a_log, b_mat, c_mat, cfg.ssm_chunk, use_kernel=use_kernel)
+
+
 def ssm_block(
     p: dict,
     x: torch.Tensor,  # [B, S, D] (already normed)
@@ -121,10 +138,10 @@ def ssm_block(
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_groups
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = project("bsd,de->bse", x, p["in_proj"])
     z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di].reshape(bsz, s, h, pdim)
+    xs = shard(xbc[..., :di].reshape(bsz, s, h, pdim), "batch", None, "ssm_heads", None)
     b_mat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
     c_mat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
     dt = F.softplus(dt.float() + p["dt_bias"])  # [B,S,H]
@@ -139,14 +156,16 @@ def ssm_block(
         c_p = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
         dt_p = F.pad(dt, (0, 0, 0, pad))
 
-    y, final_state = ssd_ops.ssd_scan(xs_p, dt_p, p["a_log"], b_p, c_p, cfg.ssm_chunk,
-                                      use_kernel=use_kernel)
+    y, final_state = blockwise(
+        lambda *a: _scan(*a, cfg, use_kernel), (xs_p, dt_p, p["a_log"], b_p, c_p),
+        (_HEADS, ("batch", None, "ssm_heads"), ("ssm_heads",), _ROWS, _ROWS),
+        (_HEADS, ("batch", "ssm_heads", None, None)))
     if pad:
         y = y[:, :s]
     y = y + xs * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, di)
     y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = shard(project("bse,ed->bsd", y, p["out_proj"]), "batch", "act_seq", None)
     if not return_cache:
         return out
     conv_state = xbc_raw_tail(zxbcdt, cfg, s)
@@ -154,10 +173,19 @@ def ssm_block(
 
 
 def xbc_raw_tail(zxbcdt: torch.Tensor, cfg: ModelConfig, s: int) -> torch.Tensor:
-    """Last (conv_width-1) pre-conv xBC rows — the decode conv cache."""
+    """Last (conv_width-1) pre-conv xBC rows — the decode conv cache. A
+    copy, as JAX's slice is: a view would keep the layer's whole
+    projection alive in the cache."""
     _, xbc, _ = _split_zxbcdt(zxbcdt, cfg)
     k = cfg.ssm_conv_width
-    return xbc[:, s - (k - 1):, :]
+    return xbc[:, s - (k - 1):, :].clone()
+
+
+def _state_step(st, dt, a, b_h, c_h, xs):
+    """One token's state update and read-out, per row and SSM head."""
+    da = torch.exp(dt * a)  # [B,H]
+    st = st * da[:, :, None, None] + torch.einsum("bh,bhn,bhp->bhpn", dt, b_h, xs)
+    return torch.einsum("bhn,bhpn->bhp", c_h, st), st
 
 
 def ssm_decode(
@@ -177,12 +205,10 @@ def ssm_decode(
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_groups
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = project("bsd,de->bse", x, p["in_proj"])
     z, xbc_new, dt = _split_zxbcdt(zxbcdt, cfg)
     window = torch.cat([conv_state, xbc_new], dim=1)  # [B, K, C]
-    conv_out = F.silu(
-        torch.einsum("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"]
-    )[:, None, :]
+    conv_out = F.silu(project("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])[:, None, :]
     xs = conv_out[..., :di].reshape(bsz, h, pdim)
     b_mat = conv_out[..., di:di + g * n].reshape(bsz, g, n)
     c_mat = conv_out[..., di + g * n:].reshape(bsz, g, n)
@@ -191,17 +217,14 @@ def ssm_decode(
     c_h = c_mat.repeat_interleave(rep, dim=1)
     dt = F.softplus(dt.float() + p["dt_bias"]).reshape(bsz, h)
     a = -torch.exp(p["a_log"].float())
-    da = torch.exp(dt * a)  # [B,H]
-
-    st = ssd_state.float()
-    st = st * da[:, :, None, None] + torch.einsum(
-        "bh,bhn,bhp->bhpn", dt, b_h.float(), xs.float()
-    )
-    y = torch.einsum("bhn,bhpn->bhp", c_h.float(), st)
+    heads, state = ("batch", "ssm_heads", None), ("batch", "ssm_heads", None, None)
+    y, st = blockwise(_state_step, (ssd_state.float(), dt, a, b_h.float(), c_h.float(),
+                                    xs.float()),
+                      (state, heads[:2], heads[1:2], heads, heads, heads), (heads, state))
     y = y.to(x.dtype) + xs * p["d_skip"][None, :, None]
     y = y.reshape(bsz, 1, di)
     y = rms_norm(y, p["norm"], cfg.norm_eps) * F.silu(z)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = project("bse,ed->bsd", y, p["out_proj"])
     conv_state.copy_(window[:, 1:])
     ssd_state.copy_(st)
     return out, conv_state, ssd_state

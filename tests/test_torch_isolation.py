@@ -65,7 +65,11 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.analysis", "repro_torch.analysis.retrace",
             "repro_torch.analysis.lockgraph", "repro_torch.common.meshctx",
             "repro_torch.common.sharding", "repro_torch.models.moe_shard_map",
-            "repro_torch.models.decode_shard_map"} <= set(modules)
+            "repro_torch.models.decode_shard_map", "repro_torch.launch.mesh",
+            "repro_torch.launch.specs", "repro_torch.launch.state_specs",
+            "repro_torch.launch.hbm_model", "repro_torch.launch.hlo_analysis",
+            "repro_torch.launch.dryrun", "repro_torch.models.params",
+            "repro_torch.models.quant"} <= set(modules)
     blocked = ("jax", "repro", "msgpack", "zstandard")
     code = (
         "import importlib, sys, tempfile\n"

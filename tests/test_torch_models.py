@@ -164,29 +164,31 @@ def test_prefill_runs_each_kernel_once_per_layer(pairs, monkeypatch):
     calls = {"flash": [], "ssd": 0}
     flash, scan = layers.flash_attention, ssm.ssd_ops.ssd_scan
 
+    # the kernel path (the card's choice by device) forced with use_kernel=True;
+    # the counted ops then serve the plain versions, as the CPU has no kernel
     def counted_flash(q, k, v, causal=True, **kw):
         calls["flash"].append(causal)
-        return flash(q, k, v, causal=causal, **kw)
+        return flash(q, k, v, causal=causal, **{**kw, "use_kernel": False})
 
     def counted_scan(*a, **kw):
         calls["ssd"] += 1
-        return scan(*a, **kw)
+        return scan(*a, **{**kw, "use_kernel": False})
 
     monkeypatch.setattr(layers, "flash_attention", counted_flash)
     monkeypatch.setattr(ssm.ssd_ops, "ssd_scan", counted_scan)
     cfg, _, _, tp = pairs["hymba"]
-    M.prefill(cfg, tp, {"tokens": torch.from_numpy(_tokens(cfg)[:1])})
+    M.prefill(cfg, tp, {"tokens": torch.from_numpy(_tokens(cfg)[:1])}, use_kernel=True)
     assert calls == {"flash": [True] * cfg.n_layers, "ssd": cfg.n_layers}
 
     cfg, _, _, tp = pairs["vlm"]
     calls["flash"] = []
     _, tb = _batches(cfg, _tokens(cfg)[:1, :PROMPT])
-    _, cache = M.prefill(cfg, tp, tb, max_cache_len=MAX_LEN)
+    _, cache = M.prefill(cfg, tp, tb, max_cache_len=MAX_LEN, use_kernel=True)
     per = cfg.cross_attn_every - 1
     assert calls["flash"] == ([True] * per + [False]) * (cfg.n_layers // cfg.cross_attn_every)
     calls["flash"] = []
     M.decode_step(cfg, tp, cache, {"token": torch.from_numpy(_tokens(cfg)[:1, :1]),
-                                   "pos": PROMPT})
+                                   "pos": PROMPT}, use_kernel=True)
     assert calls["flash"] == [False] * (cfg.n_layers // cfg.cross_attn_every)
 
 
