@@ -17,8 +17,9 @@ package `repro`. Phases, each of which fails the run by raising:
                card, at the main paths' shapes and at edge cases (topk_sim
                on each of its routes that can take the inputs, cluster,
                split, wgmma and select, the wgmma and select routes also
-               bitwise against the split route, select also at k = 130,
-               k = T and D = 1,536, which only it takes; and flash attention
+               bitwise against the split route, select also at k = 130
+               (over 2,413 to 100,003 rows), k = T and D = 1,536, which
+               only it takes; and flash attention
                on both its kernels: wgmma for bf16, fma for float32 and for
                bf16 with hd % 8 != 0, each launch checked against the route
                `topk_route` or `flash_route` gives; the SSD scan also on
@@ -243,7 +244,10 @@ package `repro`. Phases, each of which fails the run by raising:
                each pass's profiler device time and the rows rescored a
                call; its routes as the table grows and, at 100,000 tools,
                as the batch grows; the host dispatch of one small call
-               against its device time; flash attention's two kernels on
+               against its device time; the select route at the
+               re-ranker's 64 x 2,413 and 64 x 100,000 at k = 130 and at
+               8 x 2,413 x D = 1,536, k = 25, each pass's device time
+               beside its own bound; flash attention's two kernels on
                the same bf16 inputs, in turns; each SSD scan phase's device
                time; the launcher's shapes); per-phase p50 and per-batch
                p50/p99 of the gateway.
@@ -1221,7 +1225,10 @@ def learn_phase(dev, card, tb_bench, tb_enc, native):
             or not trained_steps or health["status"] != "ok"):
         raise AssertionError(f"learn daemon: failed steps {failed}, {loop_errors} loop_error "
                              f"events, train_failed {train_failed}, trained steps "
-                             f"{len(trained_steps)}, health {health['status']!r}")
+                             f"{len(trained_steps)}, health {health['status']!r} (index "
+                             f"{health['index']}, serving {health['serving']}, stores "
+                             f"{health['stores']}; decisions "
+                             f"{[st['decisions'] for st in daemon_steps]})")
     quiet = [st["seconds"] for st in daemon_steps if st not in trained_steps]
     log(f"learn daemon: start({LEARN_DAEMON_INTERVAL_S}) beside {passes} serving passes in "
         f"{daemon_s:.1f} s: {len(daemon_steps)} steps, none failed, no loop_error, health ok; "
@@ -3826,7 +3833,8 @@ def main() -> int:
     # at k = 26), k = T, D past 1,024; its FMA chain and cuBLAS may order
     # float32 near-ties apart, so the near-tie rule applies
     for n_q, n_t, d, k in [(64, 2413, 384, 130), (8, 2413, 384, 130), (8, 2413, 384, 2413),
-                           (8, 2413, 1536, 25), (33, 100_003, 384, 130)]:
+                           (8, 2413, 1536, 25), (33, 100_003, 384, 130),
+                           (64, 100_000, 384, 130), (1, 100_003, 384, 130)]:
         q, t = unit_rows(n_q, d, gen), unit_rows(n_t, d, gen)
         if topk_kernel.topk_route(n_q, n_t, d, k, t, q) != "select":
             raise AssertionError(f"k={k} D={d} must take the select route")
@@ -4809,31 +4817,75 @@ def main() -> int:
             f"{host_ms:.4f} ms, CUDA-event time {event_ms:.4f} ms, device time per launch "
             + json.dumps({k[:40]: round(v, 5) for k, v in dev_ms.items()}) + f" on {card}")
 
-    # the select route at the re-ranker's shape: a batch of 64 over the
-    # native 2,413 tools, C = 5 x 26 = 130 candidates
-    sel_q = torch.from_numpy(q_all[:64]).to(dev)
-    sel_k = 5 * RERANK_K
-    sel_rounds = alternating({
-        "kernel": lambda: topk_kernel.topk_sim_cuda(sel_q, table_native, sel_k),
-        "library": lambda: torch.topk(sel_q @ table_native.T, sel_k)})
-    sel_ms = float(np.median(sel_rounds["kernel"]))
-    sel_lib = float(np.median(sel_rounds["library"]))
-    sel_plain = cuda_ms(lambda: topk_sim_ref(sel_q, table_native, sel_k))
-    sel_bound, sel_by = topk_bound(64, table_native.shape[0], sel_q.shape[1], sel_k)["cuda_cores"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            topk_kernel.topk_sim_cuda(sel_q, table_native, sel_k)
-        torch.cuda.synchronize()
-    sel_passes = {name: e.self_device_time_total / 1e3 / e.count
-                  for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                  for name in ("topk_sim_select_scores", "topk_sim_select_topk") if name in e.key}
-    log(f"time topk_sim Q=64 T={table_native.shape[0]} D={sel_q.shape[1]} k={sel_k} (select): "
-        f"kernel median {sel_ms:.4f} ms (rounds "
-        + ", ".join(f"{t:.4f}" for t in sel_rounds["kernel"])
-        + f"), torch.topk(q@t.T) median {sel_lib:.4f} ms (rounds "
-        + ", ".join(f"{t:.4f}" for t in sel_rounds["library"]) + f"); plain {sel_plain:.4f} ms; "
-        f"bound {sel_bound:.4f} ms ({sel_by}); device ms per launch "
-        + json.dumps({k: round(v, 4) for k, v in sel_passes.items()}) + f" on {card}")
+    # the select route at three shapes, each in rounds in turns with
+    # torch.topk(q @ t.T, k): the re-ranker's C = 5 x 26 = 130 candidates for
+    # a batch of 64 over the native 2,413 tools and over the 100,000-tool
+    # table, and k = 25 over a 1,536-wide table (seeded unit rows, D > 1,024);
+    # each pass alone, launched back to back through the library as
+    # `select_plan` sizes it (CUDA events; this process's profiler records
+    # no select kernel by now), beside its own bound: pass 1 reads q and t
+    # once, writes the [Q, T] scores and does 2QTD float32 FLOPs; pass 2
+    # reads the scores and writes the k pairs
+    wide = torch.Generator(device=dev).manual_seed(24)
+    rerank_q = torch.from_numpy(q_all[:64]).to(dev)
+    sel_lib = topk_kernel.LIBRARY.load()
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def select_pass_ms(q, table, k):
+        """CUDA-event ms a launch of each select pass alone."""
+        n_q, (n_t, d) = q.shape[0], table.shape
+        plan = topk_kernel.select_plan(n_q, n_t, d, k, n_sms)
+        sims = torch.empty((n_q, n_t), device=dev)
+        out_s = torch.empty((n_q, k), device=dev)
+        out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def pass1():
+            topk_kernel.LIBRARY.check(sel_lib.topk_sim_select_scores_launch(
+                q.device.index, plan.bq, plan.br, plan.stages, q.data_ptr(), table.data_ptr(),
+                n_q, n_t, d, sims.data_ptr(), stream), "topk_sim_select_scores")
+
+        def pass2():
+            topk_kernel.LIBRARY.check(sel_lib.topk_sim_select_topk_launch(
+                q.device.index, plan.threads, plan.cs, plan.cap, sims.data_ptr(), n_q, n_t, k,
+                topk_kernel.select_sort_len(k), sims.data_ptr(), out_s.data_ptr(),
+                out_i.data_ptr(), stream), "topk_sim_select_topk")
+
+        if k > topk_kernel.SEL_SMEM_KEYS:
+            raise AssertionError("select_pass_ms times only sorts in shared memory")
+        return plan, {"topk_sim_select_scores": cuda_ms(pass1, iters=100),
+                      "topk_sim_select_topk": cuda_ms(pass2, iters=100)}
+
+    select_times = []
+    for q, table, k in [(rerank_q, table_native, 5 * RERANK_K), (rerank_q, table_big, 5 * RERANK_K),
+                        (unit_rows(8, 1536, wide), unit_rows(table_native.shape[0], 1536, wide), 25)]:
+        n_q, (n_t, d) = q.shape[0], table.shape
+        if topk_kernel.topk_route(n_q, n_t, d, k, table, q) != "select":
+            raise AssertionError(f"Q={n_q} T={n_t} D={d} k={k} must take the select route")
+        call = functools.partial(topk_kernel.topk_sim_cuda, q, table, k)
+        rounds = alternating({"kernel": call,
+                              "library": lambda q=q, table=table, k=k: torch.topk(q @ table.T, k)})
+        plain = cuda_ms(functools.partial(topk_sim_ref, q, table, k))
+        bound_ms, bound_by = topk_bound(n_q, n_t, d, k)["cuda_cores"]
+        plan, passes = select_pass_ms(q, table, k)
+        pass_bounds = {
+            "topk_sim_select_scores": bound(4 * (n_q * d + n_t * d + n_q * n_t),
+                                            2 * n_q * n_t * d, PEAK_F32_FLOP_PER_S),
+            "topk_sim_select_topk": bound(4 * n_q * n_t + 12 * n_q * k, 0, PEAK_F32_FLOP_PER_S)}
+        row = dict(shape=[n_q, n_t, d, k], ms=float(np.median(rounds["kernel"])),
+                   library_ms=float(np.median(rounds["library"])), plain_ms=plain,
+                   bound_ms=bound_ms, bound_by=bound_by, rounds_ms=rounds, pass_ms=passes,
+                   pass_bounds=pass_bounds, plan=plan._asdict())
+        select_times.append(row)
+        log(f"time topk_sim Q={n_q} T={n_t} D={d} k={k} (select): kernel median "
+            f"{row['ms']:.4f} ms (rounds " + ", ".join(f"{t:.4f}" for t in rounds["kernel"])
+            + f"), torch.topk(q@t.T) median {row['library_ms']:.4f} ms (rounds "
+            + ", ".join(f"{t:.4f}" for t in rounds["library"]) + f"); plain {plain:.4f} ms; "
+            f"bound {bound_ms:.4f} ms ({bound_by}); CUDA-event ms a launch of each pass alone "
+            + json.dumps({name: round(v, 4) for name, v in passes.items()}) + "; pass bounds "
+            + json.dumps({name: [round(b[0], 4), b[1]] for name, b in pass_bounds.items()})
+            + f"; plan {json.dumps(plan._asdict())} on {card}")
+    sel = select_times[0]
 
     # the new kernels at the full-width shapes of layer 0's prefill (bf16)
     (q, k, v), kw = captured["flash"][0]
@@ -4987,10 +5039,10 @@ def main() -> int:
         launches_by_path={"pipeline": pipe_routes["select"], "train": train["launches"]["topk_sim"],
                           "dryrun": dryrun["launches"]["topk_sim"]},
         max_abs_err=max(c["max_abs_err"] for c in checks if c["route"] == "select"),
-        ms=sel_ms, plain_ms=sel_plain, bound_ms=sel_bound, bound_by=sel_by, library_ms=sel_lib,
-        shape=[64, table_native.shape[0], sel_q.shape[1], sel_k], rounds_ms=sel_rounds,
-        device_ms_per_launch=sel_passes,
-        library=f"torch.topk(q @ t.T, {sel_k})",
+        ms=sel["ms"], plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
+        bound_by=sel["bound_by"], library_ms=sel["library_ms"], shape=sel["shape"],
+        rounds_ms=sel["rounds_ms"], pass_ms=sel["pass_ms"],
+        shapes=select_times, library="torch.topk(q @ t.T, k)",
         launches_path="pipeline: the S2 re-ranker at k = 26 over the refined table",
     ), dict(
         name="flash_attention", route="cuda",

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's cluster-route and wgmma-route topk_sim and three-phase
-ssd_scan kernels with one part removed at a time, on one NVIDIA card.
+"""Time the port's cluster-route, wgmma-route and select-route topk_sim and
+three-phase ssd_scan kernels with one part removed or replaced at a time, on
+one NVIDIA card.
 
     python3 scripts/kernel_ablation.py
 
@@ -11,12 +12,18 @@ every copy with nvcc into its own library under the ignored
 `src/repro_torch/kernels/build/` (all builds at once), and times each at
 the main paths' shapes: topk_sim's cluster route at Q=8 and Q=64 over
 2,413 rows and Q=8 over 8,192 (k=25, D=384), its wgmma route's pass 1 at
-Q=8 and Q=64 over 100,000 rows (k=5, D=384), and each scan phase at hymba-1.5b's
+Q=8 and Q=64 over 100,000 rows (k=5, D=384), its select route's two passes
+at (Q, T, D, k) = (64, 2,413, 384, 130), (64, 100,000, 384, 130),
+(8, 2,413, 1,536, 25) and (8, 100,003, 384, 130), with pass 2 also at every
+cluster size for the full kernel, and each scan phase at hymba-1.5b's
 layer shape (x 1x2048x50x64 bf16, N 16), as the profiler's device time per
 launch (a launch alone is shorter than its host dispatch, so CUDA events
 around back-to-back calls would time the host). A part's cost reads as the full
 time less the time without it; parts overlap, so the differences need not
-add up to the whole. The copies compute wrong results and are only timed.
+add up to the whole. The copies compute wrong results and are only timed,
+but for the select route's "per-bin atomics", which computes the same
+histograms as the kernel by one atomic per distinct bin a warp
+(__match_any_sync) in place of a thread's runs.
 Prints one line a variant and the card's name and power limit.
 """
 from __future__ import annotations
@@ -65,6 +72,19 @@ WGMMA_PARTS = {
          "      if (lane == 0) {\n        cnt[n] = 0;",
          "      if (lane == 0) {\n        cnt[n] = 0;")],
 }
+SELECT_PARTS = {
+    "full": [],
+    "no products": [("      for (int g = 0; g < G; ++g) {", "      for (int g = 0; g < 0; ++g) {")],
+    "per-bin atomics": [
+        ("        if (bin[u] == BINS) continue;\n        if (bin[u] == run_bin) {",
+         "        const unsigned peers = __match_any_sync(FULL, bin[u]);\n"
+         "        if (bin[u] < BINS && lane == __ffs(peers) - 1)\n"
+         "          atomicAdd(&h[bin[u]], static_cast<unsigned>(__popc(peers)));\n"
+         "        continue;\n        if (bin[u] == run_bin) {"),
+    ],
+}
+SELECT_SHAPES = ((64, 2413, 384, 130), (64, 100_000, 384, 130), (8, 2413, 1536, 25),
+                 (8, 100_003, 384, 130))
 SSD_PARTS = {
     "full": [],
     "no M xd": [("for (int s = 0; s < r0 + 4; ++s) {", "for (int s = 0; s < 0; ++s) {")],
@@ -126,6 +146,7 @@ def main() -> int:
 
     jobs = [("topk_sim", v, p) for v, p in TOPK_PARTS.items()]
     jobs += [("topk_sim", f"wgmma {v}", p) for v, p in WGMMA_PARTS.items()]
+    jobs += [("topk_sim", f"select {v}", p) for v, p in SELECT_PARTS.items()]
     jobs += [("ssd_scan", v, p) for v, p in SSD_PARTS.items()]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         libs = list(pool.map(lambda job: build(*job), jobs))
@@ -147,11 +168,14 @@ def main() -> int:
               .to(torch.bfloat16) for _ in range(2))
     scores = torch.empty((64, 25), device=dev)
     idx = torch.empty((64, 25), dtype=torch.int64, device=dev)
-    plans = {}  # (library, qb, stages) -> cluster size
+    # (library path, qb, stages) -> cluster size; keyed by path, not id(): a
+    # freed library's id can come back for the next one, whose kernels would
+    # then launch without the cluster attributes the plan sets
+    plans = {}
 
     def cluster_call(lib, n_q, n_t, qb):
         stages = topk_kernel.cluster_stages(qb, 384, 25)
-        key = (id(lib), qb, stages)
+        key = (lib._name, qb, stages)
         if key not in plans:
             cs = ctypes.c_int(0)
             rc = lib.topk_sim_cluster_plan(0, qb, 384, 25, stages, ctypes.byref(cs))
@@ -178,6 +202,43 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"launch failed: {rc}")
 
+    select_inputs = {shape: (unit(shape[0], shape[2]), unit(shape[1], shape[2]))
+                     for shape in SELECT_SHAPES}
+
+    def select_calls(lib, shape, cs=None):
+        """(pass 1, pass 2) of the select route at `shape` as select_plan
+        sizes them, pass 2 at cluster size `cs` where given."""
+        n_q, n_t, d, k = shape
+        q, t = select_inputs[shape]
+        plan = topk_kernel.select_plan(n_q, n_t, d, k, n_sms)
+        if cs is not None:
+            held = 8 * k if k <= topk_kernel.SEL_SMEM_KEYS else 0
+            room = (topk_kernel.SMEM_OPT_IN - topk_kernel.SEL_FIXED_BYTES - held) // 4
+            slice_keys = -(-n_t // cs)
+            plan = plan._replace(cs=cs, cap=min(slice_keys, room),
+                                 threads=1024 if slice_keys >= topk_kernel.SEL_BIG_SLICE else 512)
+        sims = torch.empty((n_q, n_t), device=dev)
+        out_s = torch.empty((n_q, k), device=dev)
+        out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+
+        def pass1():
+            rc = lib.topk_sim_select_scores_launch(0, plan.bq, plan.br, plan.stages, q.data_ptr(),
+                                                   t.data_ptr(), n_q, n_t, d, sims.data_ptr(),
+                                                   stream)
+            if rc:
+                raise RuntimeError(f"launch failed: {rc}")
+
+        def pass2():
+            rc = lib.topk_sim_select_topk_launch(0, plan.threads, plan.cs, plan.cap,
+                                                 sims.data_ptr(), n_q, n_t, k,
+                                                 topk_kernel.select_sort_len(k), sims.data_ptr(),
+                                                 out_s.data_ptr(), out_i.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"launch failed: {rc}")
+
+        pass1()
+        return pass1, pass2
+
     for (kernel, variant, _), so in zip(jobs, libs):
         lib = ctypes.CDLL(str(so))
         getattr(lib, f"{kernel}_error_string").restype = ctypes.c_char_p
@@ -187,6 +248,18 @@ def main() -> int:
                      for n_q in (8, 64)]
             print(f"topk_sim wgmma pass 1 T=100000 k=5, {variant[6:]}: " + ", ".join(times),
                   flush=True)
+        elif variant.startswith("select"):
+            topk_kernel._bind(lib)
+            for shape in SELECT_SHAPES:
+                pass1, pass2 = select_calls(lib, shape)
+                print(f"topk_sim select Q,T,D,k={shape}, {variant[7:]}: pass 1 "
+                      f"{device_ms(pass1, 'topk_sim_select_scores'):.4f} ms, pass 2 "
+                      f"{device_ms(pass2, 'topk_sim_select_topk'):.4f} ms", flush=True)
+                if variant == "select full":
+                    times = [f"{cs} {device_ms(select_calls(lib, shape, cs)[1], 'topk_sim_select_topk'):.4f} ms"
+                             for cs in (1, 2, 4, 8, 16)]
+                    print(f"topk_sim select Q,T,D,k={shape}, pass 2 by cluster size: "
+                          + ", ".join(times), flush=True)
         elif kernel == "topk_sim":
             topk_kernel._bind(lib)
             times = []

@@ -166,23 +166,50 @@
 //
 // "select", for what the three above refuse: k > 128 (the gateway asks for
 // C = 5k candidates when its re-ranker runs, 130 at k = 26) or D > 1024.
-// It takes any k <= T and any D, as the Pallas kernel does, and is simple
-// rather than fast: it only has to be right. Two launches:
-//   pass 1, topk_sim_select_scores: grid (ceil(T/128), ceil(Q/8)); each
-//     thread scores one row against 8 queries with the split route's
-//     float32 FMA chain over d = 0..D-1 (chunks of 32 columns staged in
-//     shared memory, so D has no upper limit) and writes the scores to a
-//     [Q, T] float32 scratch: 4QT bytes more than the other routes move.
-//   pass 2, topk_sim_select_topk: one block per query finds the k-th
-//     largest 64-bit key (the same keys as above, so ties go to the lowest
-//     row) by a radix select: eight passes over the row's T keys, each
-//     counting the next 8 bits of the keys that match the prefix found so
-//     far in a 256-bin shared histogram. Keys are distinct, so exactly k
-//     keys are >= the k-th; they are compacted (a shared atomic counter)
-//     into shared memory (k <= 4096) or into a [Q, pow2(k)] scratch, padded
-//     with the key 0 (below every key of a row < 2^31 - 1) and sorted
-//     descending by a block-wide bitonic sort.
-//
+// It takes any k <= T and any D, as the Pallas kernel does. Two launches,
+// both sized by topk_sim/kernel.py::select_plan from the shapes alone:
+//   pass 1, topk_sim_select_scores: register-tiled float32 FMA chains. A
+//     block scores BQ queries against BR rows (tiles of 8-64 x 32-128 and at
+//     most 256 threads, the largest whose grid still gives every SM a
+//     block; two blocks fit an SM), each thread a 4 x 4
+//     micro-tile: 16 independent chains, each the split route's
+//     acc = fmaf(q[d], t[d], acc) over d = 0..D-1 in order, so the scores
+//     are the split route's bits (no tensor cores, no reordered sum). Chunks
+//     of 64 columns of the block's queries and rows arrive through a ring of
+//     up to four buffers, each completing on its mbarrier: four bulk tensor
+//     copies (two 32-column boxes of each) where D % 4 == 0 and both bases
+//     are 16-byte aligned, else every thread's 4-byte cp.async. Rows sit in
+//     TMA's 128-byte swizzle, so one float4 read feeds four steps of each of
+//     a row's four chains without bank conflicts. At the re-ranker's shape
+//     (64 x 2,413 x 384) the grid is 152 blocks of two warps: each thread's
+//     6,144 dependent-chain FMAs, not the bytes, bound it. The scores go to
+//     a [Q, T] float32 scratch: 4QT bytes more than the other routes move.
+//   pass 2, topk_sim_select_topk: a thread-block cluster of CS blocks (1 to
+//     16) a query, each holding a slice of the query's scores as pack_key's
+//     upper 32 bits in its own shared memory, read once (past what 16
+//     blocks hold, the rest of a slice is read again from the scratch in
+//     each pass); 512 threads a block, 1,024 for a slice of 16,384 keys or
+//     more, whose block has its SM to itself and is bound by the latency of
+//     each thread's pass over its keys. Four 8-bit radix passes over those
+//     score bits find the k-th largest score: each block counts its keys
+//     that match the prefix found so far (a thread counts a run of keys in
+//     one bin and adds it by one shared atomic when the bin changes: a few
+//     atomics a thread where scores share their top byte; on an H100 this
+//     beat one atomic per distinct bin a warp found by __match_any_sync),
+//     the blocks sum the cluster's histograms in distributed shared memory,
+//     and warp 0 finds the bin by a suffix scan of shuffles; a pass that
+//     leaves exactly as many matching keys as are still wanted ends the
+//     search. Every key above the threshold score goes in; of the keys
+//     equal to it, the `remaining` lowest rows, counted in row order
+//     (thread order in a block, an exclusive scan; rank order across the
+//     cluster's blocks, from the last pass's histograms), so ties go to the
+//     lowest row as in lax.top_k. The k survivors, as pack_key's 64-bit
+//     keys, gather in the leader block's shared memory (remote atomics hand
+//     out the slots) and are placed by rank counting: a key's place is the
+//     count of keys above it, S threads counting for one key where k S is at
+//     most the block's threads. Past SEL_SMEM_KEYS = 4,096 they gather in a
+//     [Q, pow2(k)] scratch, padded with the key 0, and the leader sorts them
+//     by a bitonic network.
 // The empty-slot sentinel NEG_INF is an argument, passed from Python, so
 // the port has one sentinel. Limits of the first three routes: k <= 128,
 // D <= 1024, the split and wgmma routes' n_split*k <= 4096 (the wrapper
@@ -215,11 +242,16 @@ constexpr int KPL = MAX_K / 32;  // list entries per lane
 constexpr int SMEM_OPT_IN = 227 * 1024;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 
-__device__ __forceinline__ uint64_t pack_key(float s, uint32_t row) {
+// the order-preserving 32 bits of a score
+__device__ __forceinline__ uint32_t score_key(float s) {
   uint32_t u = __float_as_uint(s);
   if ((u << 1) == 0) u = 0;  // -0.0 ties +0.0, as a float compare says
-  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-  return (static_cast<uint64_t>(u) << 32) | static_cast<uint64_t>(0xFFFFFFFFu - row);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ uint64_t pack_key(float s, uint32_t row) {
+  return (static_cast<uint64_t>(score_key(s)) << 32) |
+         static_cast<uint64_t>(0xFFFFFFFFu - row);
 }
 
 __device__ __forceinline__ float key_score(uint64_t key) {
@@ -1337,56 +1369,198 @@ int launch(const void* queries, const void* table, int n_q, int n_t, int d, int 
 // ------------------------------------------------------------- select route
 namespace sel {
 
-constexpr int QB = 8;             // pass 1: queries a block
-constexpr int ROWS = 128;         // pass 1: rows a block, one a thread
-constexpr int DK = 32;            // pass 1: columns staged at once
-constexpr int THREADS = 512;      // pass 2
-constexpr int SMEM_KEYS = 4096;   // pass 2 sorts up to this many keys in shared memory
+constexpr int BOX = 32;          // pass 1: columns of a tensor copy's box (128-byte rows)
+constexpr int DC = 2 * BOX;      // pass 1: depth of one ring chunk, two boxes
+constexpr int MAX_STAGES = 4;    // pass 1: ring depth
+constexpr int MAX_THREADS = 1024;  // pass 2: 512 or 1024 threads a block
+constexpr int MAX_WARPS = MAX_THREADS / 32;
+constexpr int SMEM_KEYS = 4096;  // pass 2 ranks up to this many keys in the leader's shared memory
+constexpr int MAX_CS = 16;
+constexpr int BINS = 256;
+constexpr int PASSES = 4;        // 8 bits each over the 32 score bits
+constexpr int UNROLL = 4;        // pass 2: keys a thread takes at once in a histogram
+// pass 2's shared memory besides the survivors and the slice: the four
+// passes' histograms, their cluster totals, the scan's warp sums, four ints
+constexpr int FIXED_BYTES = 4 * (PASSES * BINS + BINS + MAX_WARPS + 4);
 
-__global__ void __launch_bounds__(ROWS) topk_sim_select_scores(
+// mbarriers, 1 KB of slack to align the ring, the ring
+constexpr size_t scores_smem_bytes(int bq, int br, int stages) {
+  return BAR_BYTES + 1024 + sizeof(float) * static_cast<size_t>(stages) * (bq + br) * DC;
+}
+
+constexpr size_t topk_smem_bytes(int k, int cap) {
+  return (k <= SMEM_KEYS ? sizeof(uint64_t) * static_cast<size_t>(k) : 0) + FIXED_BYTES +
+         sizeof(uint32_t) * static_cast<size_t>(cap);
+}
+
+// [rows, d] float32 read as boxes of [box_rows x BOX] in 128-byte swizzle;
+// rows past `rows` and columns past d read as zeros
+cudaError_t make_map(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int d,
+                     int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * 4};
+  const cuuint32_t box[2] = {BOX, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// one float, or four zero bytes where `n` is 0, from any global address
+__device__ __forceinline__ void copy4(uint32_t dst, const float* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
+// this thread's cp.async copies so far arrive on `bar` when they land
+__device__ __forceinline__ void copies_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Pass 1: scores [Q, T] by the split route's float32 chain. A block scores
+// BQ queries against BR rows; each thread a 4 x 4 micro-tile (queries
+// tq + QT i, rows tr + RT j), 16 independent chains. The warps' lanes sit
+// LR across rows by LQ across queries, so a warp's float4 reads of a depth
+// step hit LR rows and LQ queries. Chunks of DC columns of the block's
+// queries and rows arrive in a ring of `stages` buffers, each completing on
+// its mbarrier: by four bulk tensor copies, a box of BOX columns of the
+// queries and one of the rows for each half (`tma`: D % 4 == 0 and 16-byte
+// aligned bases; thread 0 issues them), else by every thread's 4-byte
+// cp.async. A staged row of a half is 128 bytes in TMA's 128-byte swizzle:
+// its 16-byte group g sits at g ^ (row & 7), so the LR rows a warp reads at
+// one depth fall on distinct banks. Past Q, T and D the rows read as zeros;
+// a half wholly past D is skipped (the split route's padded steps add
+// fmaf(0, 0, acc), which leaves the chain's value as it is).
+template <int BQ, int BR>
+__global__ void __launch_bounds__(BQ * BR / 16) topk_sim_select_scores(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap tmap,
     const float* __restrict__ queries, const float* __restrict__ table, int n_q, int n_t, int d,
-    float* __restrict__ scores) {
-  __shared__ float q_s[QB][DK];
-  __shared__ float t_s[ROWS][DK + 1];  // odd stride: a thread's row, conflict-free
-  const int tid = threadIdx.x;
-  const long long row0 = static_cast<long long>(blockIdx.x) * ROWS;
-  const int q0 = blockIdx.y * QB;
-  float acc[QB];
-#pragma unroll
-  for (int i = 0; i < QB; ++i) acc[i] = 0.0f;
-  for (int d0 = 0; d0 < d; d0 += DK) {
-    // a warp reads 32 consecutive columns of one row per step
-    for (int e = tid; e < ROWS * DK; e += ROWS) {
-      const int r = e / DK, c = e % DK;
-      const long long row = row0 + r;
-      t_s[r][c] = (row < n_t && d0 + c < d) ? __ldg(table + row * d + d0 + c) : 0.0f;
+    int stages, int tma, float* __restrict__ scores) {
+  constexpr int NT = BQ * BR / 16;
+  constexpr int QT = BQ / 4, RT = BR / 4;  // threads across the queries, the rows
+  constexpr int LQ = QT < 4 ? QT : 4, LR = 32 / LQ;  // a warp's lanes across them
+  constexpr int WR = RT / LR;                         // warps across the rows
+  constexpr int ROWS = BQ + BR;  // a half's staged rows: the queries, then the table's
+  constexpr int HALF = ROWS * BOX * sizeof(float);  // bytes
+  constexpr int G = BOX / 4;                        // float4 depth groups a half
+  static_assert(NT % 32 == 0 && RT % LR == 0 && QT % LQ == 0, "tile");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t bar0 = smem_u32(smem);
+  // [stages][2 halves][ROWS][BOX], 1024-byte aligned, as the swizzle's 8-row period needs
+  unsigned char* ring = smem + BAR_BYTES + (1024 - (bar0 + BAR_BYTES) % 1024) % 1024;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * BR, q0 = blockIdx.y * BQ;
+  const int nr = min(BR, n_t - r0), nq = min(BQ, n_q - q0);
+  const int n_chunks = (d + DC - 1) / DC;
+
+  auto issue = [&](int c, int s) {  // chunk c into stage s
+    const int d0 = c * DC, nc = min(DC, d - d0);
+    unsigned char* dst = ring + s * 2 * HALF;
+    const uint32_t bar = bar0 + 8 * s;
+    if (tma) {
+      if (tid != 0) return;
+      const int halves = nc > BOX ? 2 : 1;
+      // order this block's earlier reads of the stage before the async refill
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_expect_tx(bar, halves * HALF);  // whole boxes, zeros included
+      for (int h = 0; h < halves; ++h) {
+        tma_load_2d(smem_u32(dst + h * HALF), &qmap, bar, d0 + h * BOX, q0);
+        tma_load_2d(smem_u32(dst + h * HALF + BQ * BOX * sizeof(float)), &tmap, bar,
+                    d0 + h * BOX, r0);
+      }
+    } else {
+      for (int e = tid; e < ROWS * DC; e += NT) {
+        const int i = e / DC, col = e % DC, cc = col % BOX;
+        const bool is_q = i < BQ;
+        const int ri = is_q ? i : i - BQ;
+        const bool ok = (is_q ? ri < nq : ri < nr) && col < nc;
+        const float* src = !ok ? queries
+                           : is_q ? queries + static_cast<size_t>(q0 + ri) * d + d0 + col
+                                  : table + static_cast<size_t>(r0 + ri) * d + d0 + col;
+        copy4(smem_u32(dst + (col / BOX) * HALF + i * 128 +
+                       ((((cc >> 2) ^ (i & 7)) << 4) | ((cc & 3) << 2))),
+              src, ok ? 4 : 0);
+      }
+      copies_arrive(bar);
     }
-    for (int e = tid; e < QB * DK; e += ROWS) {
-      const int i = e / DK, c = e % DK;
-      q_s[i][c] = (q0 + i < n_q && d0 + c < d)
-                      ? __ldg(queries + static_cast<long long>(q0 + i) * d + d0 + c)
-                      : 0.0f;
-    }
-    __syncthreads();
-    const int nc = min(DK, d - d0);
-    for (int c = 0; c < nc; ++c) {  // the split route's chain: d = 0..D-1 in order
-      const float tv = t_s[tid][c];
-#pragma unroll
-      for (int i = 0; i < QB; ++i) acc[i] = fmaf(q_s[i][c], tv, acc[i]);
-    }
-    __syncthreads();
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8 * s, tma ? 1 : NT);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const long long row = row0 + tid;
-  if (row < n_t) {
+  __syncthreads();
+  for (int c = 0; c < min(stages, n_chunks); ++c) issue(c, c);
+
+  // byte offsets in a half of this thread's rows, swizzle included: depth
+  // group g of a row is at offset ^ (g << 4)
+  const int tr = (warp % WR) * LR + lane % LR;
+  const int tq = (warp / WR) * LQ + lane / LR;
+  int qoff[4], toff[4];
 #pragma unroll
-    for (int i = 0; i < QB; ++i)
-      if (q0 + i < n_q) scores[static_cast<long long>(q0 + i) * n_t + row] = acc[i];
+  for (int i = 0; i < 4; ++i) {
+    const int r = tq + QT * i, t = BQ + tr + RT * i;
+    qoff[i] = r * 128 + ((r & 7) << 4);
+    toff[i] = t * 128 + ((t & 7) << 4);
+  }
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  int s = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < n_chunks; ++c) {
+    mbar_wait(bar0 + 8 * s, phase);
+    const int halves = d - c * DC > BOX ? 2 : 1;
+    for (int h = 0; h < halves; ++h) {
+      const unsigned char* st = ring + (s * 2 + h) * HALF;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float4 a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(st + (qoff[i] ^ (g << 4)));
+          b[i] = *reinterpret_cast<const float4*>(st + (toff[i] ^ (g << 4)));
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {  // the chain: d = 4g, 4g + 1, 4g + 2, 4g + 3 in order
+            float v = acc[i][j];
+            v = fmaf(a[i].x, b[j].x, v);
+            v = fmaf(a[i].y, b[j].y, v);
+            v = fmaf(a[i].z, b[j].z, v);
+            v = fmaf(a[i].w, b[j].w, v);
+            acc[i][j] = v;
+          }
+      }
+    }
+    __syncthreads();  // every thread is done with stage s
+    if (c + stages < n_chunks) issue(c + stages, s);
+    if (++s == stages) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + tq + QT * i;
+    if (q >= n_q) continue;
+    float* out = scores + static_cast<size_t>(q) * n_t;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = r0 + tr + RT * j;
+      if (r < n_t) out[r] = acc[i][j];
+    }
   }
 }
 
 // Sort x[0..p) descending (p a power of two) with a bitonic network; every
-// thread of the block calls it. x is in shared or in global memory: the
-// barrier between steps orders both for the block.
+// thread of the block calls it. x is in global memory: the barrier between
+// steps orders it for the block.
 __device__ void bitonic_sort_desc(uint64_t* x, int p) {
   for (int size = 2; size <= p; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
@@ -1405,65 +1579,323 @@ __device__ void bitonic_sort_desc(uint64_t* x, int p) {
   }
 }
 
-// One block per query: radix-select the k-th largest key of the row's T
-// scores, compact the k keys >= it, sort them, write (score, row) pairs.
-// `sorted` is a [Q, p] scratch used only when p > SMEM_KEYS.
+// The exclusive prefix sum of v over the block's threads in thread order;
+// `sums` holds WARPS ints. Every thread calls it.
+template <int WARPS>
+__device__ int block_exclusive_scan(int v, int* sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < WARPS ? sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < WARPS) sums[lane] = w;
+  }
+  __syncthreads();
+  return (warp > 0 ? sums[warp - 1] : 0) + x - v;
+}
+
+// Pass 2: a cluster of CS blocks a query. Block r holds the 32-bit score
+// keys of rows [r * per, (r + 1) * per) of the query's scores, the first
+// `cap` in shared memory (read once), the rest read again from the scratch.
+// Four 8-bit radix passes over the score bits find the k-th largest score:
+// each block counts its keys that match the prefix found so far (each thread
+// adds a run of keys in one bin by one shared atomic), the blocks add the
+// cluster's
+// histograms in distributed shared memory, and warp 0 finds the bin by a
+// suffix scan. Every key above the threshold score goes in; of the
+// keys equal to it, the `remaining` lowest rows, counted in row order
+// across the cluster (thread order within a block, rank order across
+// blocks). The k survivors, as pack_key's 64-bit keys, go to the leader
+// (rank 0): its shared memory for k <= SMEM_KEYS, ranked by counting the
+// keys above each; else the [Q, p] scratch `sorted`, sorted by a bitonic
+// network.
+template <int THREADS>
 __global__ void __launch_bounds__(THREADS) topk_sim_select_topk(
-    const float* __restrict__ scores, int n_t, int k, int p, uint64_t* __restrict__ sorted,
-    float* __restrict__ out_scores, int64_t* __restrict__ out_idx) {
-  __shared__ unsigned hist[256];
-  __shared__ uint64_t prefix_s;
-  __shared__ int remaining_s;
-  __shared__ unsigned count_s;
-  __shared__ uint64_t keys_s[SMEM_KEYS];
-  const int tid = threadIdx.x;
-  const long long qi = blockIdx.x;
+    const float* __restrict__ scores, int n_t, int k, int p, int cap,
+    uint64_t* __restrict__ sorted, float* __restrict__ out_scores, int64_t* __restrict__ out_idx) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const bool in_smem = k <= SMEM_KEYS;
+  uint64_t* held = reinterpret_cast<uint64_t*>(smem);  // [k] the leader's survivors
+  unsigned* hist = reinterpret_cast<unsigned*>(smem + (in_smem ? sizeof(uint64_t) * k : 0));
+  unsigned* tot = hist + PASSES * BINS;              // [BINS] the cluster's histogram
+  constexpr int WARPS = THREADS / 32;
+  constexpr int KPT = SMEM_KEYS / THREADS;  // keys a thread ranks past THREADS
+  int* sums = reinterpret_cast<int*>(tot + BINS);  // [MAX_WARPS]
+  int* misc = sums + MAX_WARPS;                    // bin, remaining, its count, slots taken
+  uint32_t* keys = reinterpret_cast<uint32_t*>(misc + 4);  // [cap] the slice's score keys
+
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long qi = blockIdx.x / cs;
   const float* row = scores + qi * n_t;
+  const int per = (n_t + cs - 1) / cs;
+  const int begin = min(rank * per, n_t);
+  const int n = min(per, n_t - begin);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto key_at = [&](int i) {
+    return i < cap ? keys[i] : score_key(row[begin + i]);
+  };
+  // a block's own shared memory directly, a peer's through the cluster
+  auto at = [&](auto* p, int r) { return r == rank ? p : cluster.map_shared_rank(p, r); };
+  auto sync_cluster = [&] {  // a cluster of one needs only the block's barrier
+    if (cs == 1) __syncthreads();
+    else cluster.sync();
+  };
 
-  uint64_t prefix = 0, mask = 0;
-  int remaining = k;  // the wanted key's rank among the keys that match `prefix`
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int i = tid; i < 256; i += THREADS) hist[i] = 0;
-    __syncthreads();
-    for (int i = tid; i < n_t; i += THREADS) {
-      const uint64_t key = pack_key(row[i], static_cast<uint32_t>(i));
-      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
-    }
-    __syncthreads();
-    if (tid == 0) {
-      int b = 255, r = remaining;
-      while (static_cast<int>(hist[b]) < r) {  // the counts above sum to >= r
-        r -= static_cast<int>(hist[b]);
-        --b;
+  for (int i = tid; i < min(n, cap); i += THREADS) keys[i] = score_key(row[begin + i]);
+  for (int i = tid; i < PASSES * BINS; i += THREADS) hist[i] = 0;
+  if (tid == 0) misc[3] = 0;
+  if (!in_smem && rank == 0)  // pad the sort with the key 0, below every row's key
+    for (long long i = k + tid; i < p; i += THREADS) sorted[qi * p + i] = 0ull;
+  __syncthreads();
+
+  uint32_t prefix = 0, mask = 0;
+  int remaining = k;  // keys still wanted among those whose bits match `prefix`
+  int match = 0;      // the cluster's keys that match `prefix`
+  int last = 0;       // the last pass run
+  for (int pass = 0; pass < PASSES; ++pass) {
+    const int shift = 24 - 8 * pass;
+    unsigned* h = hist + pass * BINS;
+    // a thread counts a run of keys in one bin and adds it to the histogram
+    // when the bin changes: in the first pass, where most scores share their
+    // top byte, that is a few atomics a thread, not one a key. A thread takes
+    // UNROLL keys an iteration, so their loads overlap.
+    int run_bin = BINS;
+    unsigned run = 0;
+    for (int base = 0; base < n; base += UNROLL * THREADS) {
+      int bin[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        const int i = base + u * THREADS + tid;
+        bin[u] = BINS;  // no bin
+        if (i < n) {
+          const uint32_t key = key_at(i);
+          if ((key & mask) == prefix) bin[u] = static_cast<int>((key >> shift) & 255u);
+        }
       }
-      prefix_s = prefix | (static_cast<uint64_t>(b) << shift);
-      remaining_s = r;
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (bin[u] == BINS) continue;
+        if (bin[u] == run_bin) {
+          ++run;
+        } else {
+          if (run) atomicAdd(&h[run_bin], run);
+          run_bin = bin[u];
+          run = 1;
+        }
+      }
+    }
+    if (run) atomicAdd(&h[run_bin], run);
+    sync_cluster();  // every block's histogram of this pass is complete
+    for (int b = tid; b < BINS; b += THREADS) {  // the peers' counts, all loads in flight
+      unsigned v[MAX_CS];
+#pragma unroll
+      for (int r = 0; r < MAX_CS; ++r) v[r] = r < cs ? at(h, r)[b] : 0u;
+      unsigned s = 0;
+#pragma unroll
+      for (int r = 0; r < MAX_CS; ++r) s += v[r];
+      tot[b] = s;
     }
     __syncthreads();
-    prefix = prefix_s;
-    remaining = remaining_s;
-    mask |= static_cast<uint64_t>(255) << shift;
+    if (warp == 0) {  // lane l holds bins 255 - 8l - j, j = 0..7: a suffix scan from the top
+      unsigned c[8], sum = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c[j] = tot[255 - 8 * lane - j];
+        sum += c[j];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned y = __shfl_up_sync(FULL, incl, o);
+        if (lane >= o) incl += y;
+      }
+      const unsigned hit = __ballot_sync(FULL, incl >= static_cast<unsigned>(remaining));
+      if (lane == __ffs(hit) - 1) {
+        unsigned before = incl - sum;
+        for (int j = 0; j < 8; ++j) {
+          if (before + c[j] >= static_cast<unsigned>(remaining)) {
+            misc[0] = 255 - 8 * lane - j;
+            misc[1] = remaining - static_cast<int>(before);
+            misc[2] = static_cast<int>(c[j]);
+            break;
+          }
+          before += c[j];
+        }
+      }
+    }
+    __syncthreads();
+    prefix |= static_cast<uint32_t>(misc[0]) << shift;
+    mask |= 255u << shift;
+    remaining = misc[1];
+    match = misc[2];
+    last = pass;
+    if (remaining == match) break;  // every key of the bin goes in (cluster-uniform)
   }
-  // prefix is now the k-th largest key; exactly k keys are >= it
 
-  uint64_t* x = p <= SMEM_KEYS ? keys_s : sorted + qi * p;
-  if (tid == 0) count_s = 0;
-  for (int i = k + tid; i < p; i += THREADS) x[i] = 0ull;
-  __syncthreads();
-  for (int i = tid; i < n_t; i += THREADS) {
-    const uint64_t key = pack_key(row[i], static_cast<uint32_t>(i));
-    if (key >= prefix) {
-      const unsigned slot = atomicAdd(&count_s, 1u);
-      if (slot < static_cast<unsigned>(k)) x[slot] = key;
+  // gather: pack_key's keys of the survivors into the leader's buffer
+  const bool order = remaining < match;  // only some keys of the bin go in
+  uint64_t* out = in_smem ? at(held, 0) : sorted + qi * p;
+  int* slots = at(misc + 3, 0);
+  const uint32_t top = prefix | ~mask;  // the largest key of the bin
+  for (int base = 0; base < n; base += THREADS) {  // keys above the bin (or all of it), any order
+    const int i = base + tid;
+    uint32_t key = 0;
+    bool take = false;
+    if (i < n) {
+      key = key_at(i);
+      take = order ? key > top : key >= prefix;
+    }
+    const unsigned ballot = __ballot_sync(FULL, take);
+    if (ballot == 0) continue;  // warp-uniform
+    int slot = 0;
+    if (lane == 0) slot = atomicAdd(slots, __popc(ballot));
+    slot = __shfl_sync(FULL, slot, 0) + __popc(ballot & ((1u << lane) - 1u));
+    if (take)
+      out[slot] = (static_cast<uint64_t>(key) << 32) |
+                  static_cast<uint64_t>(0xFFFFFFFFu - static_cast<uint32_t>(begin + i));
+  }
+  if (order) {  // the `remaining` lowest rows of the bin, after the k - remaining above it
+    const int bin = static_cast<int>((prefix >> (24 - 8 * last)) & 255u);
+    int before = 0;  // the bin's keys in lower-ranked blocks: lower rows
+    for (int r = 0; r < rank; ++r) before += at(hist + last * BINS, r)[bin];
+    const int m = (n + THREADS - 1) / THREADS;  // thread t walks rows [t m, t m + m) of the slice
+    const int lo = min(tid * m, n), hi = min(lo + m, n);
+    int cnt = 0;
+    for (int i = lo; i < hi; ++i) cnt += (key_at(i) & mask) == prefix;
+    int r = before + block_exclusive_scan<WARPS>(cnt, sums);
+    for (int i = lo; i < hi && r < remaining; ++i) {
+      const uint32_t key = key_at(i);
+      if ((key & mask) != prefix) continue;
+      out[k - remaining + r] =
+          (static_cast<uint64_t>(key) << 32) |
+          static_cast<uint64_t>(0xFFFFFFFFu - static_cast<uint32_t>(begin + i));
+      ++r;
     }
   }
-  __syncthreads();
-  bitonic_sort_desc(x, p);
-  for (int i = tid; i < k; i += THREADS) {
-    const uint64_t key = x[i];
-    out_scores[qi * k + i] = key_score(key);
-    out_idx[qi * k + i] = static_cast<int64_t>(key_row(key));
+  sync_cluster();  // every survivor is with the leader; no block reads a peer after this
+  if (rank != 0) return;
+
+  const size_t o = static_cast<size_t>(qi) * k;
+  if (in_smem && k <= THREADS) {
+    // a key's place is the count of keys above it (keys are distinct): S
+    // adjacent threads (k S <= THREADS, S <= 32) count one key's, each over
+    // every S-th key, and add their counts by shuffles
+    int sh = 0;
+    while (sh < 5 && (k << (sh + 1)) <= THREADS) ++sh;
+    const int i = tid >> sh, part = tid & ((1 << sh) - 1);
+    const uint64_t x = i < k ? held[i] : 0ull;
+    int r = 0;
+#pragma unroll 4
+    for (int j = part; j < k; j += 1 << sh) r += held[j] > x;
+    for (int m = (1 << sh) >> 1; m > 0; m >>= 1) r += __shfl_xor_sync(FULL, r, m);
+    if (i < k && part == 0) {
+      out_scores[o + r] = key_score(x);
+      out_idx[o + r] = static_cast<int64_t>(key_row(x));
+    }
+  } else if (in_smem) {  // KPT keys a thread
+    uint64_t x[KPT];
+    int r[KPT];
+#pragma unroll
+    for (int m = 0; m < KPT; ++m) {
+      const int i = tid + THREADS * m;
+      x[m] = i < k ? held[i] : 0ull;
+      r[m] = 0;
+    }
+#pragma unroll 2
+    for (int j = 0; j < k; ++j) {
+      const uint64_t y = held[j];
+#pragma unroll
+      for (int m = 0; m < KPT; ++m) r[m] += y > x[m];
+    }
+#pragma unroll
+    for (int m = 0; m < KPT; ++m) {
+      const int i = tid + THREADS * m;
+      if (i < k) {
+        out_scores[o + r[m]] = key_score(x[m]);
+        out_idx[o + r[m]] = static_cast<int64_t>(key_row(x[m]));
+      }
+    }
+  } else {
+    uint64_t* x = sorted + qi * p;
+    bitonic_sort_desc(x, p);
+    for (int i = tid; i < k; i += THREADS) {
+      out_scores[o + i] = key_score(x[i]);
+      out_idx[o + i] = static_cast<int64_t>(key_row(x[i]));
+    }
   }
+}
+
+template <int BQ, int BR>
+int launch_scores(const void* queries, const void* table, int n_q, int n_t, int d, int stages,
+                  int tma, void* scores, cudaStream_t stream) {
+  cudaError_t err;
+  static bool configured = false;  // raise the dynamic shared memory cap once
+  if (!configured) {
+    err = cudaFuncSetAttribute(topk_sim_select_scores<BQ, BR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  CUtensorMap qmap = {}, tmap = {};
+  if (tma) {
+    static const EncodeTiled encode = load_encode_tiled();
+    if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+    err = make_map(encode, &qmap, queries, n_q, d, BQ);
+    if (err == cudaSuccess) err = make_map(encode, &tmap, table, n_t, d, BR);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((n_t + BR - 1) / BR, (n_q + BQ - 1) / BQ);
+  topk_sim_select_scores<BQ, BR><<<grid, BQ * BR / 16, scores_smem_bytes(BQ, BR, stages), stream>>>(
+      qmap, tmap, static_cast<const float*>(queries), static_cast<const float*>(table), n_q, n_t,
+      d, stages, tma, static_cast<float*>(scores));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int THREADS>
+int launch_topk(int cs, int cap, const void* scores, int n_q, int n_t, int k, int p, void* sorted,
+                void* out_scores, void* out_idx, cudaStream_t stream) {
+  cudaError_t err;
+  static bool configured = false;
+  if (!configured) {
+    err = cudaFuncSetAttribute(topk_sim_select_topk<THREADS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_OPT_IN);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(topk_sim_select_topk<THREADS>,
+                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cs * n_q, 1, 1);
+  config.blockDim = dim3(THREADS, 1, 1);
+  config.dynamicSmemBytes = topk_smem_bytes(k, cap);
+  config.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, topk_sim_select_topk<THREADS>,
+                           static_cast<const float*>(scores), n_t, k, p, cap,
+                           static_cast<uint64_t*>(sorted), static_cast<float*>(out_scores),
+                           static_cast<int64_t*>(out_idx));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace sel
@@ -1577,35 +2009,66 @@ int topk_sim_wgmma_launch(int device, int n_pad, const void* queries, const void
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The select route's pass 1: scores [n_q, n_t] float32 by the FMA chain.
-int topk_sim_select_scores_launch(int device, const void* queries, const void* table, int n_q,
-                                  int n_t, int d, void* scores, void* stream) {
-  if (n_q < 1 || n_t < 1 || d < 1 || (n_q + sel::QB - 1) / sel::QB > 65535) {
+// The select route's pass 1: scores [n_q, n_t] float32 by the FMA chain, in
+// blocks of bq queries x br rows (SEL_TILE below; topk_sim/kernel.py::select_plan
+// picks them) with a ring of `stages` chunks. Bulk tensor copies where
+// D % 4 == 0 and both bases are 16-byte aligned, else 4-byte cp.async.
+// Returns a tensor map's encode error or the launch's (0 on success).
+int topk_sim_select_scores_launch(int device, int bq, int br, int stages, const void* queries,
+                                  const void* table, int n_q, int n_t, int d, void* scores,
+                                  void* stream) {
+  if (n_q < 1 || n_t < 1 || d < 1 || bq < 1 || (n_q + bq - 1) / bq > 65535 || stages < 1 ||
+      stages > sel::MAX_STAGES ||
+      sel::scores_smem_bytes(bq, br, stages) > static_cast<size_t>(SMEM_OPT_IN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((n_t + sel::ROWS - 1) / sel::ROWS, (n_q + sel::QB - 1) / sel::QB);
-  sel::topk_sim_select_scores<<<grid, sel::ROWS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(queries), static_cast<const float*>(table), n_q, n_t, d,
-      static_cast<float*>(scores));
-  return static_cast<int>(cudaGetLastError());
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int tma = d % 4 == 0 && aligned(queries) && aligned(table);
+  const auto s = static_cast<cudaStream_t>(stream);
+#define SEL_TILE(Q, R)                                                                   \
+  if (bq == Q && br == R)                                                                \
+    return sel::launch_scores<Q, R>(queries, table, n_q, n_t, d, stages, tma, scores, s);
+  SEL_TILE(64, 64) SEL_TILE(64, 32) SEL_TILE(32, 128) SEL_TILE(32, 64) SEL_TILE(32, 32)
+  SEL_TILE(16, 128) SEL_TILE(16, 64) SEL_TILE(16, 32) SEL_TILE(8, 128) SEL_TILE(8, 64)
+#undef SEL_TILE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The select route's pass 2: one block per query over its n_t scores; p is
-// k rounded up to a power of two, `sorted` a [n_q, p] uint64 scratch read
-// only when p > 4096 (may be any pointer otherwise).
-int topk_sim_select_topk_launch(int device, const void* scores, int n_q, int n_t, int k, int p,
-                                void* sorted, void* out_scores, void* out_idx, void* stream) {
-  if (n_q < 1 || k < 1 || k > n_t || p < k || (p & (p - 1)) != 0 || p > (1 << 30)) {
+// The select route's pass 2: clusters of cs blocks (1 to 16, a power of
+// two) of `threads` (512 or 1024) a query over its n_t scores, each block
+// holding up to `cap` of its slice's keys in shared memory; p is k rounded up to a power of two, `sorted` a
+// [n_q, p] uint64 scratch read only when k > 4096 (any pointer otherwise).
+int topk_sim_select_topk_launch(int device, int threads, int cs, int cap, const void* scores,
+                                int n_q, int n_t, int k, int p, void* sorted, void* out_scores,
+                                void* out_idx, void* stream) {
+  if (n_q < 1 || k < 1 || k > n_t || p < k || (p & (p - 1)) != 0 || p > (1 << 30) || cs < 1 ||
+      cs > sel::MAX_CS || (cs & (cs - 1)) != 0 || cap < 0 ||
+      static_cast<long long>(n_q) * cs > 0x7FFFFFFFLL ||
+      sel::topk_smem_bytes(k, cap) > static_cast<size_t>(SMEM_OPT_IN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sel::topk_sim_select_topk<<<n_q, sel::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scores), n_t, k, p, static_cast<uint64_t*>(sorted),
-      static_cast<float*>(out_scores), static_cast<int64_t*>(out_idx));
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (threads == 512) return sel::launch_topk<512>(cs, cap, scores, n_q, n_t, k, p, sorted, out_scores, out_idx, s);
+  if (threads == 1024) return sel::launch_topk<1024>(cs, cap, scores, n_q, n_t, k, p, sorted, out_scores, out_idx, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Both passes of the select route, as the wrapper runs them: pass 1 into
+// `scores`, then pass 2 from it (one call from the host for the two
+// launches). Returns the first error (0 on success).
+int topk_sim_select_launch(int device, int bq, int br, int stages, int threads, int cs, int cap,
+                           const void* queries, const void* table, int n_q, int n_t, int d, int k,
+                           int p, void* scores, void* sorted, void* out_scores, void* out_idx,
+                           void* stream) {
+  const int err = topk_sim_select_scores_launch(device, bq, br, stages, queries, table, n_q, n_t,
+                                                d, scores, stream);
+  if (err != 0) return err;
+  return topk_sim_select_topk_launch(device, threads, cs, cap, scores, n_q, n_t, k, p, sorted,
+                                     out_scores, out_idx, stream);
 }
 
 const char* topk_sim_error_string(int err) {

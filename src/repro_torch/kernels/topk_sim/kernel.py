@@ -20,11 +20,15 @@ WGMMA_MIN_Q <= Q <= 64 and Q * k <= WGMMA_MAX_QK (forced, it takes
 Q <= 64 and k <= 32); and "split" (two launches: float32 FMAs over table
 slices on the whole card, then a merge through a scratch tensor) for the
 rest and for inputs the bulk copies cannot take; "select" (two launches:
-the split route's FMA chain writes a [Q, T] score scratch, then a radix
-select and a bitonic sort a query) only for what the other three refuse,
-k > MAX_K or D > MAX_D: it takes any k <= T and any D, as the Pallas
-kernel does. None falls back to another. The wgmma and select routes
-return bitwise what the split route returns where it can run.
+register-tiled float32 FMA chains, fed by a ring of asynchronous copies,
+write a [Q, T] score scratch; then a thread-block cluster a query runs a
+32-bit radix select over the scores held in its blocks' shared memory,
+takes the lowest rows among ties at the threshold, and ranks the k
+survivors in its leader block; `select_plan` sizes both passes) only for
+what the other three refuse, k > MAX_K or D > MAX_D: it takes any k <= T
+and any D, as the Pallas kernel does. None falls back to another. The
+wgmma and select routes return bitwise what the split route returns
+where it can run.
 
 `topk_sim_cuda` checks its inputs, allocates the outputs (and the two-pass
 routes' scratch) with `torch.empty`, and launches on the current stream.
@@ -47,7 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
-from typing import Dict, Optional, Set, Tuple
+from typing import Dict, NamedTuple, Optional, Set, Tuple
 
 import torch
 
@@ -75,6 +79,8 @@ __all__ = [
     "margin_coefs",
     "rescored",
     "reset_rescored",
+    "SelectPlan",
+    "select_plan",
     "select_sort_len",
     "split_plan",
     "topk_route",
@@ -118,8 +124,27 @@ WMIN_STAGES, WMAX_STAGES = 4, 24
 # came within 3% either way at 640 (64 x 10), and lost from 1,024 (64 x 16)
 WGMMA_MIN_Q = 9
 WGMMA_MAX_QK = 320
-# the select route's: pass 2 sorts up to SEL_SMEM_KEYS keys in shared memory,
-# more in a [Q, pow2(k)] scratch; its bitonic network indexes with 32-bit ints
+# the select route's (sel:: in topk_sim.cu). Pass 1: tiles of BQ queries x BR
+# rows, largest first, a thread per 4 x 4 (one to eight warps a block),
+# chunks of SEL_DC columns (two boxes of 128-byte rows), a ring of up to
+# SEL_MAX_STAGES in SEL_RING_BYTES, so two blocks fit an SM. Pass 2: 512
+# threads a block, 1,024 for slices of SEL_BIG_SLICE keys or more (a block
+# that holds such a slice has its SM to itself), clusters of up to
+# SEL_MAX_CS; the cluster doubles
+# while the grid stays within one block an SM and a slice keeps
+# SEL_MIN_SLICE keys, and past that while a slice outgrows a block's shared
+# memory. The leader ranks up to SEL_SMEM_KEYS survivors in shared memory; a
+# [Q, pow2(k)] scratch takes more (its bitonic network indexes with 32-bit
+# ints).
+SEL_TILES = tuple((bq, br) for bq in (64, 32, 16, 8) for br in (128, 64, 32)
+                  if 512 <= bq * br <= 4096)
+SEL_DC = 64
+SEL_RING_BYTES = 96 * 1024
+SEL_MAX_STAGES = 4
+SEL_MAX_CS = 16
+SEL_MIN_SLICE = 2048
+SEL_BIG_SLICE = 16384
+SEL_FIXED_BYTES = 4 * (4 * 256 + 256 + 1024 // 32 + 4)  # histograms, totals, scan, ints
 SEL_SMEM_KEYS = 4096
 SEL_MAX_K = 2**30
 ROUTES = ("cluster", "split", "wgmma", "select")
@@ -154,10 +179,16 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_float, vp, vp, vp,
     ]
     lib.topk_sim_wgmma_launch.restype = ci
-    lib.topk_sim_select_scores_launch.argtypes = [ci, vp, vp, ci, ci, ci, vp, vp]
+    lib.topk_sim_select_scores_launch.argtypes = [ci, ci, ci, ci, vp, vp, ci, ci, ci, vp, vp]
     lib.topk_sim_select_scores_launch.restype = ci
-    lib.topk_sim_select_topk_launch.argtypes = [ci, vp, ci, ci, ci, ci, vp, vp, vp, vp]
+    lib.topk_sim_select_topk_launch.argtypes = [
+        ci, ci, ci, ci, vp, ci, ci, ci, ci, vp, vp, vp, vp,
+    ]
     lib.topk_sim_select_topk_launch.restype = ci
+    lib.topk_sim_select_launch.argtypes = [
+        ci, ci, ci, ci, ci, ci, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, vp, vp, vp,
+    ]
+    lib.topk_sim_select_launch.restype = ci
 
 
 LIBRARY = CudaLibrary("topk_sim", _bind)
@@ -304,6 +335,55 @@ def select_sort_len(k: int) -> int:
     return pow2_bucket(k)
 
 
+class SelectPlan(NamedTuple):
+    """Both passes of the select route for one call's shapes."""
+
+    bq: int  # pass 1: queries a block
+    br: int  # pass 1: table rows a block
+    grid: Tuple[int, int]  # pass 1: (row tiles, query tiles)
+    stages: int  # pass 1: chunks in the ring
+    scores_smem: int  # pass 1: dynamic shared memory of a block, bytes
+    threads: int  # pass 2: threads a block, 512 or 1024
+    cs: int  # pass 2: blocks a query's cluster
+    cap: int  # pass 2: a block's keys held in shared memory (the rest streams)
+    topk_smem: int  # pass 2: dynamic shared memory of a block, bytes
+
+
+@functools.lru_cache(maxsize=256)
+def select_plan(n_q: int, n_t: int, d: int, k: int, n_sms: int) -> SelectPlan:
+    """The select route's plan, from shapes alone (as topk_sim.cu sizes it).
+
+    Pass 1 takes the largest tile of SEL_TILES, no more queries a block than
+    Q needs, whose grid has at least one block an SM; where none has, the
+    last (smallest). Pass 2's cluster doubles from 1, up to SEL_MAX_CS,
+    while Q * 2CS blocks stay within one an SM and a slice of the T keys
+    keeps SEL_MIN_SLICE, then while a slice is more than a block's shared
+    memory holds beside the histograms (and the leader's k survivors,
+    k <= SEL_SMEM_KEYS) in SMEM_OPT_IN; past 16 blocks the rest of a slice
+    streams from the scratch in each pass. A block takes 1,024 threads for
+    a slice of SEL_BIG_SLICE keys or more, else 512.
+    """
+    most = min(64, max(8, pow2_bucket(n_q)))
+    tiles = [t for t in SEL_TILES if t[0] <= most]
+
+    def grid(t):
+        return _cdiv(n_t, t[1]), _cdiv(n_q, t[0])
+
+    bq, br = next((t for t in tiles if grid(t)[0] * grid(t)[1] >= n_sms), tiles[-1])
+    stage = 4 * SEL_DC * (bq + br)
+    stages = max(1, min(SEL_MAX_STAGES, _cdiv(d, SEL_DC), SEL_RING_BYTES // stage))
+    held = 8 * k if k <= SEL_SMEM_KEYS else 0
+    room = (SMEM_OPT_IN - SEL_FIXED_BYTES - held) // 4  # keys a block holds
+    cs = 1
+    while cs < SEL_MAX_CS and (_cdiv(n_t, cs) > room or (
+            n_q * 2 * cs <= n_sms and _cdiv(n_t, 2 * cs) >= SEL_MIN_SLICE)):
+        cs *= 2
+    cap = min(_cdiv(n_t, cs), room)
+    threads = 1024 if _cdiv(n_t, cs) >= SEL_BIG_SLICE else 512
+    return SelectPlan(bq, br, grid((bq, br)), stages, BAR_BYTES + 1024 + stages * stage,
+                      threads, cs, cap, held + SEL_FIXED_BYTES + 4 * cap)
+
+
 def can_take(route: str, queries: torch.Tensor, table: torch.Tensor, k: int) -> bool:
     """Whether `route`'s kernel can take these inputs (any table size): the
     split route takes every k <= MAX_K and D <= MAX_D, the select route
@@ -429,24 +509,21 @@ def topk_sim_cuda(
         launches_by_route["cluster"] += 1
         launched_routes.add("cluster")
         return scores, idx
-    if route == "select":
+    if route == "select":  # pass 1 (scores) and pass 2 (selection) in one host call
+        plan = select_plan(n_q, n_t, d, k, n_sms)
         sims = torch.empty((n_q, n_t), dtype=torch.float32, device=dev)
-        rc = lib.topk_sim_select_scores_launch(
-            dev.index, queries.data_ptr(), table.data_ptr(), n_q, n_t, d, sims.data_ptr(), stream,
-        )
-        LIBRARY.check(rc, "topk_sim_select_scores")
-        launches += 1
-        launches_by_route["select"] += 1
         p = select_sort_len(k)
-        sort_buf = torch.empty((n_q, p) if p > SEL_SMEM_KEYS else (1,), dtype=torch.int64,
-                               device=dev)
-        rc = lib.topk_sim_select_topk_launch(
-            dev.index, sims.data_ptr(), n_q, n_t, k, p, sort_buf.data_ptr(),
-            scores.data_ptr(), idx.data_ptr(), stream,
+        # the sort's scratch, read only past SEL_SMEM_KEYS
+        sort_buf = (torch.empty((n_q, p), dtype=torch.int64, device=dev) if k > SEL_SMEM_KEYS
+                    else sims)
+        rc = lib.topk_sim_select_launch(
+            dev.index, plan.bq, plan.br, plan.stages, plan.threads, plan.cs, plan.cap,
+            queries.data_ptr(), table.data_ptr(), n_q, n_t, d, k, p, sims.data_ptr(),
+            sort_buf.data_ptr(), scores.data_ptr(), idx.data_ptr(), stream,
         )
-        LIBRARY.check(rc, "topk_sim_select_topk")
-        launches += 1
-        launches_by_route["select"] += 1
+        LIBRARY.check(rc, "topk_sim_select")
+        launches += 2
+        launches_by_route["select"] += 2
         launched_routes.add("select")
         return scores, idx
     if route == "wgmma":

@@ -169,6 +169,61 @@ def test_topk_sim_select_route_ties_in_the_scratch_sort(cuda_device):
     torch.testing.assert_close(ks, q.gather(1, best[:, None]).expand(-1, k), atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("q,t,d,k", [(1, 100_003, 384, 130), (8, 100_003, 384, 130),
+                                     (2, 1_000_003, 8, 130)])
+def test_topk_sim_select_route_cluster_split(cuda_device, q, t, d, k):
+    """The select route's pass 2 over a 16-block cluster a query (one query
+    and eight over 100,003 rows), and over more keys than the cluster's
+    shared memory holds (1,000,003 rows: each block streams the rest of its
+    slice from the scratch in every pass): the plain version's ranking, as
+    `_assert_cluster_ranking` says."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = topk_kernel.select_plan(q, t, d, k, n_sms)
+    assert plan.cs == topk_kernel.SEL_MAX_CS
+    assert (plan.cs * plan.cap < t) == (t > 1_000_000)
+    rng = np.random.default_rng(q + t)
+    qt, tt = _unit_rows(rng, q, d, cuda_device), _unit_rows(rng, t, d, cuda_device)
+    before = dict(topk_kernel.launches_by_route)
+    ks, ki = topk_sim(qt, tt, k)
+    torch.cuda.synchronize()
+    assert topk_kernel.launches_by_route == {**before, "select": before["select"] + 2}
+    rs, ri = topk_sim_ref(qt, tt, k)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
+def test_topk_sim_select_route_plain_loads(cuda_device):
+    """D = 130 on a table base off a 16-byte boundary: pass 1 stages its
+    chunks by 4-byte cp.async, zero-filled past D, in place of bulk copies.
+    At k = 200 it agrees with the plain version; forced at k = 25 it returns
+    the split route's bits."""
+    rng = np.random.default_rng(130)
+    flat = torch.empty(2413 * 130 + 1, device=cuda_device)
+    tt = flat[1:].view(2413, 130)
+    tt.copy_(_unit_rows(rng, 2413, 130, cuda_device))
+    assert tt.data_ptr() % 16 != 0
+    qt = _unit_rows(rng, 8, 130, cuda_device)
+    ks, ki = topk_sim(qt, tt, 200)
+    rs, ri = topk_sim_ref(qt, tt, 200)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+    ss, si = topk_kernel.topk_sim_cuda(qt, tt, 25, route="split")
+    xs, xi = topk_kernel.topk_sim_cuda(qt, tt, 25, route="select")
+    assert torch.equal(xs, ss) and torch.equal(xi, si)
+
+
+def test_topk_sim_select_route_all_zero_query(cuda_device):
+    """An all-zero query scores 0 against every row: every key ties at the
+    threshold, and the k = 300 lowest rows come out in order."""
+    rng = np.random.default_rng(0)
+    tt = _unit_rows(rng, 2413, 384, cuda_device)
+    qt = torch.cat([torch.zeros((1, 384), device=cuda_device),
+                    _unit_rows(rng, 3, 384, cuda_device)]).contiguous()
+    ks, ki = topk_sim(qt, tt, 300)
+    assert torch.equal(ki[0], torch.arange(300, device=cuda_device))
+    assert bool((ks[0] == 0).all())
+    rs, ri = topk_sim_ref(qt, tt, 300)
+    _assert_cluster_ranking(qt, tt, ks, ki, rs, ri)
+
+
 def _assert_same_up_to_near_ties(idx_a, sc_a, idx_b, sc_b, tie=1e-5):
     """Ranking a equals b, scores within 1e-5, except that a may reorder
     runs of b's positions whose adjacent scores are closer than `tie` (the

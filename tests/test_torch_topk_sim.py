@@ -8,6 +8,7 @@ atol=1e-5, the tolerance `tests/test_kernels.py` uses for top-K (float32,
 different summation orders). The CUDA kernel itself is held against the
 plain version on the card in `tests/test_torch_cuda.py`.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +17,7 @@ from hypothesis import given, settings, strategies as st
 
 from repro.kernels.topk_sim.kernel import topk_sim_pallas
 from repro.kernels.topk_sim.ref import topk_sim_ref as jax_topk_sim_ref
-from repro_torch.core.retrieval import NEG_INF
+from repro_torch.core.retrieval import NEG_INF, stable_topk
 from repro_torch.kernels.topk_sim import kernel as cuda_kernel
 from repro_torch.kernels.topk_sim.ops import topk_sim
 from repro_torch.kernels.topk_sim.ref import topk_sim_ref
@@ -114,6 +115,111 @@ def test_select_sort_len_is_the_next_power_of_two(k, want):
     """The select route's bitonic sort runs over k rounded up to a power of
     two, in shared memory up to SEL_SMEM_KEYS keys, in a scratch above."""
     assert cuda_kernel.select_sort_len(k) == want
+
+
+@pytest.mark.parametrize("d", [1, 130, 384, 1025, 1536, 4096])
+def test_select_plan_covers_and_fits(d):
+    """The select route's plan: pass 1's tiles cover every row and query,
+    a thread a 4 x 4 micro-tile and at least one warp a block, the grid at
+    least one block an SM wherever some tile reaches that; pass 2's cluster
+    of 1-16 blocks holds every key in shared memory unless the slices
+    outgrow it; both passes within 227 KB of shared memory."""
+    n_sms = 132
+    for n_q, n_t in [(1, 1), (1, 2413), (8, 2413), (64, 2413), (33, 100_003), (1, 100_003),
+                     (8, 100_003), (64, 100_000), (500, 7000), (3, 1_000_003)]:
+        for k in (129, 130, 4096, 4097):
+            if k > n_t:
+                continue
+            plan = cuda_kernel.select_plan(n_q, n_t, d, k, n_sms)
+            assert (plan.bq, plan.br) in cuda_kernel.SEL_TILES
+            assert 32 <= plan.bq * plan.br // 16 <= 256
+            assert plan.bq <= max(8, cuda_kernel.pow2_bucket(n_q))
+            gx, gy = plan.grid
+            assert (gx - 1) * plan.br < n_t <= gx * plan.br
+            assert (gy - 1) * plan.bq < n_q <= gy * plan.bq
+            reach = max(-(-n_t // br) * -(-n_q // bq) for bq, br in cuda_kernel.SEL_TILES
+                        if bq <= max(8, cuda_kernel.pow2_bucket(n_q)))
+            assert gx * gy >= min(n_sms, reach)
+            assert 1 <= plan.stages <= min(cuda_kernel.SEL_MAX_STAGES, -(-d // cuda_kernel.SEL_DC))
+            assert 2 * plan.scores_smem <= 227 * 1024  # two blocks an SM
+            assert plan.cs in (1, 2, 4, 8, 16)
+            per = -(-n_t // plan.cs)
+            assert 1 <= plan.cap <= per
+            assert plan.threads == (1024 if per >= cuda_kernel.SEL_BIG_SLICE else 512)
+            if plan.cap < per:  # streams only what the cluster's shared memory cannot hold
+                assert plan.cs == cuda_kernel.SEL_MAX_CS
+            if plan.cs > 1:  # a cluster spreads a query only while the grid stays in one wave
+                assert n_q * plan.cs <= n_sms or plan.cap < -(-n_t // (plan.cs // 2))
+            assert plan.scores_smem <= 227 * 1024 and plan.topk_smem <= 227 * 1024
+    # the re-ranker's shape fills a wave of the card in pass 1 (not 19 x 8 blocks of 4 warps)
+    plan = cuda_kernel.select_plan(64, 2413, 384, 130, n_sms)
+    assert plan.grid[0] * plan.grid[1] >= n_sms and plan.cs == 1
+
+
+def _score_keys(s):
+    """topk_sim.cu's `score_key`: a score's order-preserving 32 bits, -0.0
+    folded into +0.0."""
+    u = np.ascontiguousarray(s, np.float32).view(np.uint32).copy()
+    u[(u << np.uint32(1)) == 0] = 0
+    return np.where(u & np.uint32(0x80000000), ~u, u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def _select_model(s, k):
+    """The select route's pass 2 on one row of scores, in numpy: four 8-bit
+    radix passes over the 32 score bits find the k-th largest score (a pass
+    that leaves as many matching keys as are still wanted ends the search);
+    every key above it goes in and, of the keys equal to it, the lowest
+    rows; the survivors sorted by score, then row."""
+    keys = _score_keys(s)
+    prefix, mask, remaining = 0, 0, k
+    for shift in (24, 16, 8, 0):
+        hist = np.bincount((keys[(keys & mask) == prefix] >> shift) & 255, minlength=256)
+        from_top = np.cumsum(hist[::-1])
+        b = 255 - int(np.argmax(from_top >= remaining))
+        remaining -= int(from_top[255 - b] - hist[b])
+        prefix, mask = prefix | b << shift, mask | 255 << shift
+        if remaining == hist[b]:
+            break
+    equal = np.flatnonzero((keys & mask) == prefix)
+    taken = np.concatenate([np.flatnonzero(keys > (prefix | (~mask & 0xFFFFFFFF))),
+                            equal[:remaining]])
+    idx = taken[np.lexsort((taken, ~keys[taken]))]
+    return s[idx], idx
+
+
+@pytest.mark.parametrize("case", ["repeated", "signed_zero", "all_equal", "ulp_apart"])
+def test_select_tie_rule_matches_lax_top_k(case):
+    """The select route's tie rule (a 32-bit score radix select, then the
+    lowest rows among the keys equal to the threshold) gives lax.top_k's
+    order on tie-heavy rows. The kernel folds -0.0 into +0.0 as a float
+    compare does, and lax.top_k on the CPU orders +0.0 above -0.0; so with
+    signed zeros the rows agree with lax.top_k's over the row with -0.0 made
+    +0.0, with its values as floats, and with the port's plain version (a
+    stable sort). The kernel's FMA chains start at +0.0 and never yield -0.0."""
+    rng = np.random.default_rng(24)
+    n = 5000
+    if case == "repeated":  # five distinct scores
+        rows = (rng.integers(-2, 3, size=(4, n)) / 4).astype(np.float32)
+    elif case == "signed_zero":
+        rows = rng.choice(np.array([-0.0, 0.0, 0.0, -0.0, 0.5, -0.5], np.float32), size=(4, n))
+    elif case == "all_equal":
+        rows = np.stack([np.full(n, v, np.float32) for v in (0.0, 0.25, -1.0)])
+    else:  # scores a few ulps apart: the threshold sits in the low byte
+        ulp = np.spacing(np.float32(0.5))
+        rows = (np.float32(0.5) + rng.integers(0, 4, size=(4, n)) * ulp).astype(np.float32)
+    canon = np.where(rows == 0, np.float32(0.0), rows)  # -0.0 made +0.0
+    for k in (1, 130, 300, 4097, n):
+        ref_s, _ = jax.lax.top_k(jnp.asarray(rows), k)
+        _, ref_i = jax.lax.top_k(jnp.asarray(canon), k)
+        plain_s, plain_i = stable_topk(torch.from_numpy(rows), k)
+        for r, row in enumerate(rows):
+            s, i = _select_model(row, k)
+            np.testing.assert_array_equal(i, np.asarray(ref_i[r]), err_msg=f"{case} k={k}")
+            np.testing.assert_array_equal(i, plain_i[r].numpy())
+            np.testing.assert_array_equal(s, np.asarray(ref_s[r]))  # -0.0 == +0.0
+            np.testing.assert_array_equal(s, plain_s[r].numpy())
+    if case == "all_equal":
+        np.testing.assert_array_equal(_select_model(rows[0], 300)[1], np.arange(300))
 
 
 def test_split_plan_covers_the_table():
