@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving path, model pool (every family),
 offline OATS pipeline, online refinement loop, learning plane, IVF backend,
-serve launcher, training path, runtime checks and multi-device runtime once
-on one NVIDIA card.
+serve launcher, training path, runtime checks, multi-device runtime,
+dry-run and AST lint once on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -236,6 +236,17 @@ package `repro`. Phases, each of which fails the run by raising:
                must exit 0 and write its record; its FLOPs and argument
                bytes a device, collectives by kind and dominant term are
                printed. No kernel launches on this path;
+ 17. lint    — (run before 7) the port's AST lint, `python -m
+               repro_torch.analysis src`, from the repo root in a process of
+               its own with `jax` and `repro` blocked: it must exit 0 (its
+               counts of findings, baselined, suppressed and parse errors
+               and its seconds printed); then over a planted tree in a
+               temporary directory (LINT_PLANTED: a `router/` module with a
+               swap without `expect_current=`, a `print()` and a
+               `.to(device)` under `with self._lock:`, and a module importing
+               `torch.distributed.tensor._ops`), where it must exit 1 with
+               exactly one finding of each of LINT_PLANTED_RULES. No kernel
+               launches on this path (every `launches_by_path` has "lint": 0);
   7. times   — CUDA-event times of each kernel, its plain version and the
                library call, beside the bound computed from this run's
                shapes (topk_sim against torch.topk(q @ t.T) in five
@@ -443,6 +454,20 @@ DRYRUN_PRODUCTION = (
     ("hymba-1.5b", "long_500k", "multi", ()),
 )
 DRYRUN_TIMEOUT_S = 420
+# the port's lint (phase 17): `python -m repro_torch.analysis src` from the
+# repo root in a process with jax and repro blocked, then a planted tree
+# that must give exactly LINT_PLANTED_RULES
+LINT_TIMEOUT_S = 300
+LINT_PLANTED = {
+    "router/planted.py": ("class Planted:\n"
+                          "    def serve(self, db, t, x, device):\n"
+                          "        db.swap_table(t)\n"
+                          "        print(t)\n"
+                          "        with self._lock:\n"
+                          "            return x.to(device)\n"),
+    "launch/planted.py": "import torch.distributed.tensor._ops\n",
+}
+LINT_PLANTED_RULES = {"cas-discipline", "obs-discipline", "lock-dispatch", "mesh-api"}
 
 
 def log(*parts) -> None:
@@ -3376,6 +3401,54 @@ def unit_rows(n, d, gen):
     return (x / x.norm(dim=1, keepdim=True)).contiguous()
 
 
+# ------------------------------------------------------------------- 17. lint
+
+
+def _run_lint(src, cwd, args):
+    """`python -m repro_torch.analysis *args` in a fresh process from `cwd`,
+    with `jax` and `repro` blocked; returns (completed process, seconds)."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = sys.modules['repro'] = None\n"
+            f"sys.argv = ['python -m repro_torch.analysis', *{list(args)!r}]\n"
+            "runpy.run_module('repro_torch.analysis', run_name='__main__')\n")
+    env = dict(os.environ, PYTHONPATH=str(src))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env, capture_output=True,
+                          text=True, timeout=LINT_TIMEOUT_S)
+    return proc, time.perf_counter() - t0
+
+
+def lint_phase(src, tmp):
+    """Phase 17: the port's AST lint over the repo's `src` must exit 0 (its
+    counts and seconds returned), and over LINT_PLANTED in `tmp` exit 1 with
+    exactly LINT_PLANTED_RULES. Raises on any other outcome."""
+    import re
+
+    proc, seconds = _run_lint(src, src.parent, ["src"])
+    summary = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    m = re.fullmatch(r"(\d+) finding\(s\), (\d+) baselined, (\d+) suppressed, "
+                     r"(\d+) parse error\(s\)", summary)
+    if proc.returncode != 0 or m is None:
+        raise AssertionError(f"lint of src exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
+    counts = dict(zip(("findings", "baselined", "suppressed", "parse_errors"),
+                      map(int, m.groups())))
+    root = Path(tmp)
+    for rel, text in LINT_PLANTED.items():
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        (root / rel).write_text(text)
+    planted, planted_s = _run_lint(src, root, [*sorted({rel.split("/")[0] for rel in LINT_PLANTED}),
+                                               "--json", "--no-baseline", "--tests-dir", ""])
+    if planted.returncode != 1:
+        raise AssertionError(f"lint of the planted tree exited {planted.returncode}, not 1:\n"
+                             f"{planted.stdout}{planted.stderr}")
+    found = json.loads(planted.stdout)["findings"]
+    rules = {f["rule"] for f in found}
+    if rules != LINT_PLANTED_RULES or len(found) != len(LINT_PLANTED_RULES):
+        raise AssertionError(f"lint of the planted tree found {found}, "
+                             f"not one each of {sorted(LINT_PLANTED_RULES)}")
+    return dict(counts, seconds=seconds, planted_rules=sorted(rules), planted_seconds=planted_s)
+
+
 # ----------------------------------------------------------------- 16. dryrun
 
 
@@ -4669,6 +4742,21 @@ def main() -> int:
     if any(dryrun["launches"].values()):
         raise AssertionError(f"the dry-run path launched a kernel: {dryrun['launches']}")
 
+    # ---------------------------------------------------------------- 17. lint
+    # the port's lint, in processes of its own; no kernel may launch
+    for mod in kernel_modules.values():
+        mod.launches = 0
+    with tempfile.TemporaryDirectory() as lint_tmp:
+        lint = lint_phase(src, lint_tmp)
+    lint["launches"] = {name: mod.launches for name, mod in kernel_modules.items()}
+    log(f"lint path: python -m repro_torch.analysis src in {lint['seconds']:.2f} s: "
+        f"{lint['findings']} finding(s), {lint['baselined']} baselined, "
+        f"{lint['suppressed']} suppressed, {lint['parse_errors']} parse error(s); the planted "
+        f"tree in {lint['planted_seconds']:.2f} s: {lint['planted_rules']}; launches "
+        + json.dumps(lint["launches"]))
+    if any(lint["launches"].values()):
+        raise AssertionError(f"the lint path launched a kernel: {lint['launches']}")
+
     # ----------------------------------------------------------------- 7. times
     def served_call_ms(q_np, table, k, calls=50):
         """One call as FusedBackend makes it (queries up from numpy, the
@@ -5021,7 +5109,8 @@ def main() -> int:
                           "runtime": runtime["launches"]["topk_sim"],
                           "retrace": runtime["retrace"]["launches"],
                           "mesh": mesh["launches"]["topk_sim"],
-                          "dryrun": dryrun["launches"]["topk_sim"]},
+                          "dryrun": dryrun["launches"]["topk_sim"],
+                          "lint": lint["launches"]["topk_sim"]},
         launches_by_route={"serve": serve_routes, "pool": pool_topk_routes,
                            "pipeline": pipe_routes, "loop": loop_routes,
                            "learn": later_paths["learn"]["routes"],
@@ -5037,7 +5126,8 @@ def main() -> int:
         source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89", launches=pipe_routes["select"],
         launches_by_path={"pipeline": pipe_routes["select"], "train": train["launches"]["topk_sim"],
-                          "dryrun": dryrun["launches"]["topk_sim"]},
+                          "dryrun": dryrun["launches"]["topk_sim"],
+                          "lint": lint["launches"]["topk_sim"]},
         max_abs_err=max(c["max_abs_err"] for c in checks if c["route"] == "select"),
         ms=sel["ms"], plain_ms=sel["plain_ms"], bound_ms=sel["bound_ms"],
         bound_by=sel["bound_by"], library_ms=sel["library_ms"], shape=sel["shape"],
@@ -5061,7 +5151,8 @@ def main() -> int:
                           "runtime": runtime["launches"]["flash_attention"],
                           "mesh": mesh["launches"]["flash_attention"],
                           "mesh_gloo": mesh["gloo_launches"]["flash_attention"],
-                          "dryrun": dryrun["launches"]["flash_attention"]},
+                          "dryrun": dryrun["launches"]["flash_attention"],
+                          "lint": lint["launches"]["flash_attention"]},
         max_abs_err=max(c["max_abs_err"] for c in flash_checks), ms=f_ms, plain_ms=f_plain,
         bound_ms=f_bound, bound_by=f_by, library_ms=f_lib,
         shape=dict(bh=q.shape[0], bhkv=k.shape[0], s=q.shape[1], hd=q.shape[2],
@@ -5083,7 +5174,8 @@ def main() -> int:
                           "train": train["launches"]["ssd_scan"],
                           "runtime": runtime["launches"]["ssd_scan"],
                           "mesh": mesh["launches"]["ssd_scan"], "mesh_gloo": 0,
-                          "dryrun": dryrun["launches"]["ssd_scan"]},
+                          "dryrun": dryrun["launches"]["ssd_scan"],
+                          "lint": lint["launches"]["ssd_scan"]},
         max_abs_err=max(max(c["max_abs_err_y"], c["max_abs_err_state"]) for c in ssd_checks),
         ms=s_ms, plain_ms=s_plain, bound_ms=s_bound, bound_by=s_by, library_ms=None,
         shape=dict(x=list(x0.shape), g=ssd_args[3].shape[2], n=ssd_args[3].shape[3],
@@ -5103,7 +5195,7 @@ def main() -> int:
                    loop=loop, learn=later_paths["learn"]["summary"],
                    ivf=later_paths["ivf"]["summary"], launch=launch,
                    families={k: v for k, v in families.items() if k != "cross_shapes"},
-                   train=train, runtime=runtime, mesh=mesh, dryrun=dryrun)
+                   train=train, runtime=runtime, mesh=mesh, dryrun=dryrun, lint=lint)
     log("summary " + json.dumps(summary))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -32,6 +32,13 @@ running it; the port has no executable, so it runs `fn(*args)` under a
 counting dispatch mode (`CostMode`): on fake tensors (the dry-run) nothing
 is computed or allocated. Under DTensors it counts the ops each rank runs
 on its local blocks, per device as the reference's numbers are.
+
+The DTensor internals the port touches (the dry-run's patches for its fake
+runs, `dtensor_run_patches`, and the caches a new process group must
+clear, `clear_dtensor_caches`) are private to torch and move between its
+releases. They are reached here and nowhere else, which the `mesh-api`
+rule of `python -m repro_torch.analysis` checks, as the reference pins its
+JAX mesh APIs to its own meshctx.
 """
 from __future__ import annotations
 
@@ -53,6 +60,8 @@ __all__ = [
     "use_mesh",
     "make_mesh",
     "axis_sizes_dict",
+    "dtensor_run_patches",
+    "clear_dtensor_caches",
 ]
 
 _LOCAL = threading.local()  # .stack: the meshes activated by use_mesh
@@ -396,3 +405,112 @@ def cost_analysis_dict(fn, *args) -> dict:
     with CostMode() as cost:
         fn(*args)
     return {"flops": float(cost.flops), "bytes accessed": float(cost.bytes_accessed)}
+
+
+# ------------------------------------------------------------ DTensor internals
+# The dry-run's fake runs patch DTensor internals, and a new fake group
+# clears DTensor's caches. Both reach names private to torch, which moved
+# between torch 2.11 and 2.13: this module is the one place that does.
+
+
+@contextlib.contextmanager
+def dtensor_run_patches(cost: CostMode, views: set) -> Iterator[None]:
+    """For a fake run under a mesh: DTensor's strided-shard index math on
+    the host, uncounted by `cost`; its redistribution plans memoized; and
+    its views lenient, each view it could not split added to `views`."""
+    with (_strided_index_math_on_host(cost), _redistribution_plans_memoized(),
+          _views_replicate_what_they_cannot_split(views)):
+        yield
+
+
+def clear_dtensor_caches() -> None:
+    """Clear DTensor's sharding and redistribution caches, which key on
+    meshes that compare equal by shape and names (a mesh over a new group
+    would otherwise find the sub-groups of the one before)."""
+    from torch.distributed.tensor import DTensor, _collective_utils, _redistribute
+
+    torch._C._clear_DTensor_sharding_propagator_cache()
+    propagator = DTensor._op_dispatcher.sharding_propagator
+    propagator.propagate_op_sharding.cache_clear()
+    type(propagator)._propagate_tensor_meta_cached.cache_clear()
+    _redistribute._gen_transform_infos.cache_clear()
+    _redistribute.clear_redistribute_planner_cache()
+    _collective_utils.MeshTopoInfo.build_from_mesh.cache_clear()
+
+
+@contextlib.contextmanager
+def _strided_index_math_on_host(cost: CostMode):
+    """DTensor computes a strided shard's rows with small index tensors;
+    under the fake mode each would become a fake tensor of symbolic sizes
+    (seconds per call at 32k rows). They run as plain host tensors here, and
+    are not counted."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    index_math = _StridedShard.local_shard_size_and_offset
+
+    def on_host(*args, **kwargs):
+        with unset_fake_temporarily(), cost.muted():
+            return index_math(*args, **kwargs)
+
+    _StridedShard.local_shard_size_and_offset = on_host
+    try:
+        yield
+    finally:
+        _StridedShard.local_shard_size_and_offset = index_math
+
+
+@contextlib.contextmanager
+def _views_replicate_what_they_cannot_split(points: set):
+    """DTensor's `view` raises where a dimension sharded m ways is split
+    into sizes whose first m does not divide (qwen2.5-3b's 2 KV heads of a
+    projection DTensor sharded 16 ways, or hymba-1.5b's 50 SSM heads in a
+    gradient); GSPMD splits the shards over both sizes instead. For the
+    run, every view takes DTensor's lenient rule, which redistributes such
+    a dimension to Replicate() (an all-gather the collectives count); each
+    point is added to `points` as (global shape, placements before, after)
+    and goes into the record. On a mesh of one rank torch 2.11 hands some
+    views a single Replicate() for all the mesh's axes, and its own check
+    refuses that: such a view gets one Replicate() an axis."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._ops import _view_ops
+
+    propagate = _view_ops.propagate_shape_and_sharding
+
+    def lenient(src, shape, rule, mesh_sizes, strict_view=False):
+        if len(src) < len(mesh_sizes) and all(n == 1 for n in mesh_sizes):
+            src = (Replicate(),) * len(mesh_sizes)
+        tgt, out = propagate(src, shape, rule, mesh_sizes, False)
+        if tuple(tgt) != tuple(src):
+            points.add((tuple(shape), tuple(map(str, src)), tuple(map(str, tgt))))
+        return tgt, out
+
+    _view_ops.propagate_shape_and_sharding = lenient
+    try:
+        yield
+    finally:
+        _view_ops.propagate_shape_and_sharding = propagate
+
+
+_PLAN = {}  # the memoized redistribution planner, made once
+
+
+@contextlib.contextmanager
+def _redistribution_plans_memoized():
+    """DTensor memoizes its redistribution plans, except while it believes
+    it is being traced, which a fake mode makes it believe: then every
+    candidate strategy of every op re-runs the planner's search, minutes
+    per program on the 3-axis mesh. The plans depend only on the two specs
+    (static shapes here), so the run memoizes them itself."""
+    import functools
+
+    from torch.distributed.tensor import _redistribute
+
+    plan = _redistribute._gen_transform_infos_non_cached
+    if "memo" not in _PLAN or _PLAN["group"] is not dist.group.WORLD:
+        _PLAN.update(group=dist.group.WORLD, memo=functools.cache(plan))
+    _redistribute._gen_transform_infos_non_cached = _PLAN["memo"]
+    try:
+        yield
+    finally:
+        _redistribute._gen_transform_infos_non_cached = plan

@@ -138,84 +138,6 @@ def build_program(cfg, shape: ShapeCase, mesh, tc: TrainConfig, quantize: bool =
     return decode, (pstructs, cache, batch)
 
 
-@contextlib.contextmanager
-def _strided_index_math_on_host(cost: CostMode):
-    """DTensor computes a strided shard's rows with small index tensors;
-    under the fake mode each would become a fake tensor of symbolic sizes
-    (seconds per call at 32k rows). They run as plain host tensors here, and
-    are not counted."""
-    from torch._subclasses.fake_tensor import unset_fake_temporarily
-    from torch.distributed.tensor.placement_types import _StridedShard
-
-    index_math = _StridedShard.local_shard_size_and_offset
-
-    def on_host(*args, **kwargs):
-        with unset_fake_temporarily(), cost.muted():
-            return index_math(*args, **kwargs)
-
-    _StridedShard.local_shard_size_and_offset = on_host
-    try:
-        yield
-    finally:
-        _StridedShard.local_shard_size_and_offset = index_math
-
-
-@contextlib.contextmanager
-def _views_replicate_what_they_cannot_split(points: set):
-    """DTensor's `view` raises where a dimension sharded m ways is split
-    into sizes whose first m does not divide (qwen2.5-3b's 2 KV heads of a
-    projection DTensor sharded 16 ways, or hymba-1.5b's 50 SSM heads in a
-    gradient); GSPMD splits the shards over both sizes instead. For the
-    run, every view takes DTensor's lenient rule, which redistributes such
-    a dimension to Replicate() (an all-gather the collectives count); each
-    point is added to `points` as (global shape, placements before, after)
-    and goes into the record. On a mesh of one rank torch 2.11 hands some
-    views a single Replicate() for all the mesh's axes, and its own check
-    refuses that: such a view gets one Replicate() an axis."""
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor._ops import _view_ops
-
-    propagate = _view_ops.propagate_shape_and_sharding
-
-    def lenient(src, shape, rule, mesh_sizes, strict_view=False):
-        if len(src) < len(mesh_sizes) and all(n == 1 for n in mesh_sizes):
-            src = (Replicate(),) * len(mesh_sizes)
-        tgt, out = propagate(src, shape, rule, mesh_sizes, False)
-        if tuple(tgt) != tuple(src):
-            points.add((tuple(shape), tuple(map(str, src)), tuple(map(str, tgt))))
-        return tgt, out
-
-    _view_ops.propagate_shape_and_sharding = lenient
-    try:
-        yield
-    finally:
-        _view_ops.propagate_shape_and_sharding = propagate
-
-
-_PLAN = {}  # the memoized redistribution planner, made once
-
-
-@contextlib.contextmanager
-def _redistribution_plans_memoized():
-    """DTensor memoizes its redistribution plans, except while it believes
-    it is being traced, which a fake mode makes it believe: then every
-    candidate strategy of every op re-runs the planner's search, minutes
-    per program on the 3-axis mesh. The plans depend only on the two specs
-    (static shapes here), so the run memoizes them itself."""
-    import functools
-
-    from torch.distributed.tensor import _redistribute
-
-    plan = _redistribute._gen_transform_infos_non_cached
-    if "memo" not in _PLAN or _PLAN["group"] is not torch.distributed.group.WORLD:
-        _PLAN.update(group=torch.distributed.group.WORLD, memo=functools.cache(plan))
-    _redistribute._gen_transform_infos_non_cached = _PLAN["memo"]
-    try:
-        yield
-    finally:
-        _redistribute._gen_transform_infos_non_cached = plan
-
-
 def run_program(fn, args, mesh, fake: bool = True):
     """Run `fn(*args)` on its structs under the mesh (`mesh=None`: plain
     tensors, no mesh); returns (cost mode, collective stats, memory dict,
@@ -234,9 +156,7 @@ def run_program(fn, args, mesh, fake: bool = True):
         if mesh is not None:  # DTensor's partitioner, as the run needs it
             stack.enter_context(meshctx.use_mesh(mesh))
             stack.enter_context(implicit_replication())
-            stack.enter_context(_strided_index_math_on_host(cost))
-            stack.enter_context(_redistribution_plans_memoized())
-            stack.enter_context(_views_replicate_what_they_cannot_split(cost.replicated_views))
+            stack.enter_context(meshctx.dtensor_run_patches(cost, cost.replicated_views))
         colls = stack.enter_context(collectives_from_trace(cost))
         stack.enter_context(cost)
         out = fn(*args)

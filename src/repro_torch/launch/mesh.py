@@ -55,16 +55,7 @@ def _forget_earlier_groups() -> None:
     compare equal by shape and names: after a group was destroyed and a new
     one made (a test module's teardown, then the next module), the cached
     entries would point at the old group's sub-groups."""
-    import torch
-    from torch.distributed.tensor import DTensor, _collective_utils, _redistribute
-
-    torch._C._clear_DTensor_sharding_propagator_cache()
-    propagator = DTensor._op_dispatcher.sharding_propagator
-    propagator.propagate_op_sharding.cache_clear()
-    type(propagator)._propagate_tensor_meta_cached.cache_clear()
-    _redistribute._gen_transform_infos.cache_clear()
-    _redistribute.clear_redistribute_planner_cache()
-    _collective_utils.MeshTopoInfo.build_from_mesh.cache_clear()
+    meshctx.clear_dtensor_caches()
     _MESHES.clear()
 
 

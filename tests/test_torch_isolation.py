@@ -63,7 +63,9 @@ def test_every_port_module_imports_without_jax_or_repro():
             "repro_torch.training", "repro_torch.training.train_step",
             "repro_torch.training.trainer", "repro_torch.launch.train",
             "repro_torch.analysis", "repro_torch.analysis.retrace",
-            "repro_torch.analysis.lockgraph", "repro_torch.common.meshctx",
+            "repro_torch.analysis.lockgraph", "repro_torch.analysis.engine",
+            "repro_torch.analysis.findings", "repro_torch.analysis.rules",
+            "repro_torch.common.meshctx",
             "repro_torch.common.sharding", "repro_torch.models.moe_shard_map",
             "repro_torch.models.decode_shard_map", "repro_torch.launch.mesh",
             "repro_torch.launch.specs", "repro_torch.launch.state_specs",
