@@ -236,6 +236,14 @@ def _shape_queries() -> frozenset:
         torch.ops.prim.layout.default})
 
 
+def _wait_tensor():
+    """`_c10d_functional.wait_tensor` (registered once a collective module
+    is imported)."""
+    import torch.distributed._functional_collectives  # noqa: F401
+
+    return torch.ops._c10d_functional.wait_tensor
+
+
 def _tensors(tree) -> list:
     from torch.utils._pytree import tree_leaves
 
@@ -257,7 +265,9 @@ class CostMode:
     device's work and are not counted. With `track_memory`, `peak_bytes` is
     the largest total of live storages the block allocated (each storage
     counted once, freed when its last tensor dies): `watch(tree)` first
-    marks the arguments' storages, which are then never counted.
+    marks the arguments' storages, which are then never counted;
+    `peak_buffers()` lists the largest of those live at that peak, with the
+    op that made each.
     """
 
     def __init__(self, track_memory: bool = False):
@@ -273,8 +283,13 @@ class CostMode:
         self.track_memory = track_memory
         self.live_bytes = 0
         self.peak_bytes = 0
+        # each allocation: [bytes, op, shape, dtype, allocated at, freed at]
+        # on a clock of allocations, and the clock's reading at the peak
+        self._blocks: list = []
+        self._peak_at = 0
         self._seen = WeakIdKeyDictionary()  # storage -> bytes (0 for arguments)
         self._muted = 0  # inside DTensor's metadata propagation
+        wait_tensor = _wait_tensor()
         self._unpatch = None
         owner = self
 
@@ -301,8 +316,11 @@ class CostMode:
                     owner.bytes_accessed += sum(
                         t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
                 if owner.track_memory:
+                    if packet is wait_tensor:
+                        owner._same_storage(out, args[0])
+                        return out
                     for t in _tensors(out):
-                        owner._allocated(t)
+                        owner._allocated(t, str(packet))
                 return out
 
         self._mode = _Mode()
@@ -348,9 +366,9 @@ class CostMode:
         while muted, as a collective's output is)."""
         if self.track_memory:
             for t in _tensors(tree):
-                self._allocated(t)
+                self._allocated(t, "collective")
 
-    def _allocated(self, t: torch.Tensor) -> None:
+    def _allocated(self, t: torch.Tensor, op: str) -> None:
         import weakref
 
         st = t.untyped_storage()
@@ -359,11 +377,35 @@ class CostMode:
         n = st.nbytes()
         self._seen[st] = n
         self.live_bytes += n
-        self.peak_bytes = max(self.peak_bytes, self.live_bytes)
-        weakref.finalize(st, self._freed, n)
+        block = [n, op, list(t.shape), str(t.dtype).replace("torch.", ""), len(self._blocks), None]
+        self._blocks.append(block)
+        if self.live_bytes > self.peak_bytes:
+            self.peak_bytes = self.live_bytes
+            self._peak_at = len(self._blocks)
+        weakref.finalize(st, self._freed, block)
 
-    def _freed(self, n: int) -> None:
-        self.live_bytes -= n
+    def _same_storage(self, out: torch.Tensor, source: torch.Tensor) -> None:
+        """`out` is `source` (a collective's `wait_tensor` returns its
+        input on a device; its fake kernel returns a new tensor): `out`'s
+        storage is not counted, and `source`'s stays live while it is."""
+        import weakref
+
+        st, src = out.untyped_storage(), source.untyped_storage()
+        if st is src or st in self._seen:
+            return
+        self._seen[st] = self._seen.get(src, 0)
+        weakref.finalize(st, lambda _: None, src)
+
+    def _freed(self, block: list) -> None:
+        self.live_bytes -= block[0]
+        block[5] = len(self._blocks)
+
+    def peak_buffers(self, count: int = 8) -> list:
+        """The `count` largest storages live at `peak_bytes`, largest
+        first: [bytes, op that made it, shape, dtype] each (a collective's
+        output reads "collective")."""
+        live = [b for b in self._blocks[: self._peak_at] if b[5] is None or b[5] >= self._peak_at]
+        return [b[:4] for b in sorted(live, key=lambda b: -b[0])[:count]]
 
     @contextlib.contextmanager
     def muted(self):

@@ -537,18 +537,57 @@ def blockwise(fn, args: Sequence, in_axes: Sequence, out_axes: Sequence):
     return wrapped if len(out_axes) > 1 else wrapped[0]
 
 
-def scatter_rows(n: int, target: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """[n, D] zeros with each row of `data` added at its `target` row. DTensor
-    has no sharding rule for index_add_: on DTensors both operands are
-    replicated explicitly and every rank scatters all rows (the reference's
-    GSPMD partitions this scatter itself)."""
+def scatter_rows(shape: Sequence[int], target: torch.Tensor, data: torch.Tensor,
+                 axes: Sequence[Optional[str]] = ()) -> torch.Tensor:
+    """zeros(`shape`) with each row of `data` [R, D] added at its `target`
+    row of the zeros viewed as [N, D]; a target of N adds its row to a spare
+    row that is cut off (the MoE dispatch's dropped assignments). On plain
+    tensors the plain `index_add_` into N + 1 rows.
+
+    On DTensors the scatter is partitioned, as GSPMD partitions the
+    reference's: the output is placed by the logical `axes` (its first
+    dimension alone may shard: the experts), the rows of `data` and
+    `target` are split over the "batch" axes and whole over the output's.
+    Each rank adds only its rows whose target lies in its block of the
+    output, into that block alone; the block is a partial sum over the
+    rows' axes, reduced over them. No rank holds every row or the whole
+    output. The backward keeps the layout: a rank's rows take the gradient
+    of its block (zero where their target is elsewhere), summed over the
+    output's axes."""
+    shape = tuple(int(n) for n in shape)
+    width = shape[-1]
     if not isinstance(data, DTensor):
-        out = torch.zeros((n, data.shape[1]), dtype=data.dtype, device=data.device)
-        return out.index_add_(0, target, data)
-    target, data = replicate(target), replicate(data)
-    local = data.to_local()
-    out = local.new_zeros((n, local.shape[1])).index_add_(0, target.to_local(), local)
-    return wrap_local(out, data.device_mesh, data.placements, out.shape)
+        rows = int(np.prod(shape[:-1]))
+        out = torch.zeros((rows + 1, width), dtype=data.dtype, device=data.device)
+        return out.index_add_(0, target, data)[:rows].reshape(shape)
+    mesh = meshctx.current_mesh()
+    sizes = meshctx.axis_sizes_dict(mesh)
+    out_spec = spec_for(tuple(axes) + (None,) * (len(shape) - len(axes)), mesh.axis_names,
+                        shape, sizes)
+    if any(out_spec[1:]):
+        raise ValueError(f"scatter_rows shards the output's first dimension only: {out_spec}")
+    out_axes = _entry_axes(out_spec[0])
+    rows_axes = tuple(a for a in _entry_axes(spec_for(("batch",), mesh.axis_names,
+                                                      data.shape[:1], sizes)[0])
+                      if a not in out_axes)
+    rows_spec = (rows_axes[0] if len(rows_axes) == 1 else (rows_axes or None), None)
+    split = {mesh.axis_names.index(a) for a in out_axes}
+    local = to_local_block(data, rows_spec, mesh, split)
+    if isinstance(target, DTensor):
+        target = to_local_block(target, rows_spec[:1], mesh)
+    else:
+        target = local_shard(target, rows_spec[:1], mesh)
+    lo, hi = block_bounds(mesh, out_spec[0], shape[0])
+    unit = int(np.prod(shape[1:-1]))
+    n = (hi - lo) * unit
+    at = target - lo * unit
+    at = torch.where((at >= 0) & (at < n), at, n)  # elsewhere: the spare row
+    block = local.new_zeros((n + 1, width)).index_add_(0, at, local)[:n]
+    placements = [Shard(0) if a in out_axes else Partial() if a in rows_axes else Replicate()
+                  for a in mesh.axis_names]
+    out = wrap_local(block.reshape((hi - lo,) + shape[1:]), mesh.device_mesh, placements, shape)
+    return out.redistribute(mesh.device_mesh, _placements(mesh, out_spec,
+                                                          one_rank_replicates=True))
 
 
 def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

@@ -304,6 +304,8 @@ def run_one(
         # the views DTensor could not split, run replicated instead
         "replicated_views": sorted([list(shape), list(src), list(dst)]
                                    for shape, src, dst in cost.replicated_views),
+        # the largest storages live at the peak: [bytes, op, shape, dtype]
+        "peak_buffers": cost.peak_buffers(),
         "model_flops_global": model_flops,
         "useful_flops_ratio": (model_flops / max(flops * chips, 1.0)),
     }

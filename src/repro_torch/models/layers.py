@@ -284,8 +284,8 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
     logits, probs, top_w, top_e, keep, target = moe_route(p, xt, cfg)
 
     data = xt.repeat_interleave(k, dim=0) * keep[:, None].to(x.dtype)
-    buffers = shard_lib.scatter_rows(e * cap + 1, target, data)
-    buf = shard(buffers[: e * cap].reshape(e, cap, d), "experts", None, None)
+    buf = shard_lib.scatter_rows((e, cap, d), target, data, ("experts",))
+    buf = shard(buf, "experts", None, None)
 
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, p["w_gate"])) * torch.einsum(
         "ecd,edf->ecf", buf, p["w_up"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.optim.base import Optimizer, as_schedule, tree_leaves, tree_map
 
@@ -28,6 +29,17 @@ class AdafactorState(NamedTuple):
 
 def _should_factor(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+
+
+def _as_state(x, s):
+    """`x` in the layout of the state leaf `s` it replaces, where `s` is a
+    DTensor (the reference's jit keeps the state's shardings); else `x`.
+    DTensor leaves a mean over a sharded axis a partial sum, which the
+    square root after it would reduce-scatter onto another axis, and the
+    gradient divided by it would follow there."""
+    if isinstance(s, DTensor):
+        return x.redistribute(s.device_mesh, s.placements)
+    return x
 
 
 def adafactor(
@@ -60,14 +72,14 @@ def adafactor(
             g = g.float()
             g2 = torch.square(g) + eps
             if "vr" in s:
-                vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(dim=-1)
-                vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(dim=-2)
+                vr = _as_state(beta2 * s["vr"] + (1 - beta2) * g2.mean(dim=-1), s["vr"])
+                vc = _as_state(beta2 * s["vc"] + (1 - beta2) * g2.mean(dim=-2), s["vc"])
                 # factored preconditioner
                 r = vr / torch.clamp(vr.mean(dim=-1, keepdim=True), min=eps)
                 precond = g / (torch.sqrt(r)[..., None] * torch.sqrt(vc)[..., None, :] + eps)
                 new_s = {"vr": vr, "vc": vc}
             else:
-                v = beta2 * s["v"] + (1 - beta2) * g2
+                v = _as_state(beta2 * s["v"] + (1 - beta2) * g2, s["v"])
                 precond = g / (torch.sqrt(v) + eps)
                 new_s = {"v": v}
             # update clipping (RMS of update <= clip_threshold)

@@ -19,12 +19,19 @@
     drops an argument the program never reads (the VLM decode's
     cross-attention K/V weights, read only at prefill: +3.4 %), so within
     0-5 % above; temp bytes at most 1.25x the reference's (0.06-0.86).
+* The MoE block alone, where its dispatch dominates (reduced dbrx-132b
+  and arctic-480b with their own expert counts and top-k, 4 x 512
+  tokens), forward and its gradients, against the reference's over the
+  same 2x2 mesh (a JAX subprocess): temp bytes a device at most 1.25x the
+  reference's, argument bytes equal. A dispatch run replicated (every
+  rank scattering every row into the whole buffer) breaks the band.
 * The partitioned ops compute the plain ones' values: on 4 gloo ranks
   (this file run as a script), `sharding.project` (FSDP + tensor-parallel
   and partial-sum products), `gqa_attention` and the SSD scan through
-  `blockwise` and the vocab-parallel `token_nll`, forward and gradients, against the same ops
-  on plain tensors, within 1e-6 of the largest value (float32 sums in
-  another order).
+  `blockwise`, the vocab-parallel `token_nll` and the MoE dispatch's
+  `scatter_rows`, forward and gradients, against the same ops on plain
+  tensors, within 1e-6 of the largest value (float32 sums in another
+  order).
 """
 import argparse
 import json
@@ -37,12 +44,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.common.sharding import struct
 from repro_torch.configs import ARCHITECTURES, get_config
 from repro_torch.launch import dryrun as D
 from repro_torch.launch.hlo_analysis import CollectiveStats
 from repro_torch.launch.mesh import make_fake_mesh
 from repro_torch.launch.specs import ShapeCase
+from repro_torch.models import layers, model as M
 from repro_torch.models.config import reduced
+from repro_torch.models.params import param_structs
 from repro_torch.training.train_step import TrainConfig
 
 REPO = Path(__file__).resolve().parent.parent
@@ -81,26 +91,87 @@ json.dump(out, open(sys.argv[1], "w"))
 """ % {"kinds": KINDS, "seq": SEQ, "batch": BATCH}
 
 
+# the MoE block alone: full expert counts and top-k at reduced width, and
+# enough tokens that the dispatch's rows and buffers dominate its memory
+MOE_ARCHS = ("arctic-480b", "dbrx-132b")
+MOE_BATCH, MOE_SEQ = 4, 512
+JAX_MOE = """
+import json, sys, jax, jax.numpy as jnp
+from repro.common.meshctx import make_mesh, use_mesh
+from repro.common.sharding import named_sharding
+from repro.configs import get_config
+from repro.models import layers, model as JM
+from repro.models.config import reduced
+from repro.models.params import param_structs
+mesh = make_mesh((2, 2), ("data", "model"))
+out = {}
+for arch in %(archs)r:
+    full = get_config(arch)
+    cfg = reduced(full, dtype="bfloat16", n_experts=full.n_experts,
+                  experts_per_token=full.experts_per_token)
+    p = param_structs(JM._moe_specs(cfg, 1), jnp.bfloat16, mesh)
+    shape = (%(batch)d, %(seq)d, cfg.d_model)
+    x = jax.ShapeDtypeStruct(shape, jnp.bfloat16,
+                             sharding=named_sharding(mesh, ("batch", None, None), shape))
+    def forward(p, x):
+        return layers.moe_block({k: v[0] for k, v in p.items()}, x, cfg)
+    def loss(p, x):
+        y, aux = forward(p, x)
+        return jnp.mean(jnp.square(y.astype(jnp.float32))) + aux
+    for kind, fn in (("forward", forward), ("train", jax.grad(loss, argnums=(0, 1)))):
+        with use_mesh(mesh):
+            ma = jax.jit(fn).lower(p, x).compile().memory_analysis()
+        out[arch + ":" + kind] = {"argument_bytes": ma.argument_size_in_bytes,
+                                  "temp_bytes": ma.temp_size_in_bytes}
+json.dump(out, open(sys.argv[1], "w"))
+""" % {"archs": MOE_ARCHS, "batch": MOE_BATCH, "seq": MOE_SEQ}
+
+
+def _jax_subprocess(script: str, path: Path, *args: str) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    return subprocess.Popen([sys.executable, "-c", script, str(path), *args], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _records(path: Path, proc: subprocess.Popen) -> dict:
+    log, _ = proc.communicate(timeout=SUBPROCESS_TIMEOUT_S)
+    assert proc.returncode == 0, log
+    return json.loads(path.read_text())
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """Starts the JAX subprocesses (half the archs each) when the module
     starts; `wait()` gives their records."""
     tmp = tmp_path_factory.mktemp("jax_costs")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4")
     halves = (ARCHS[::2], ARCHS[1::2])
-    procs = [(tmp / f"{i}.json", subprocess.Popen(
-        [sys.executable, "-c", JAX_COSTS, str(tmp / f"{i}.json"), ",".join(archs)], env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for i, archs in enumerate(halves)]
+    procs = [(tmp / f"{i}.json", _jax_subprocess(JAX_COSTS, tmp / f"{i}.json", ",".join(archs)))
+             for i, archs in enumerate(halves)]
     records = {}
 
     def wait():
         while procs:
-            path, p = procs.pop()
-            log, _ = p.communicate(timeout=SUBPROCESS_TIMEOUT_S)
-            assert p.returncode == 0, log
-            records.update(json.loads(path.read_text()))
+            records.update(_records(*procs.pop()))
+        return records
+
+    yield wait
+    for _, p in procs:
+        p.kill()
+        p.communicate()
+
+
+@pytest.fixture(scope="module")
+def moe_reference(tmp_path_factory):
+    """The reference's MoE block alone on 4 forced host devices, started
+    when the module starts; `wait()` gives its records."""
+    path = tmp_path_factory.mktemp("jax_moe") / "moe.json"
+    procs = [(path, _jax_subprocess(JAX_MOE, path))]
+    records = {}
+
+    def wait():
+        while procs:
+            records.update(_records(*procs.pop()))
         return records
 
     yield wait
@@ -110,7 +181,7 @@ def reference(tmp_path_factory):
 
 
 @pytest.fixture(scope="module", autouse=True)
-def fake_group(reference):
+def fake_group(reference, moe_reference):
     """The fake process group this module makes is torn down after it; the
     reference's subprocesses start first."""
     yield
@@ -161,6 +232,31 @@ def test_costs_per_device_within_the_references_bands(arch, reference):
         args = got["argument_bytes"] / ref["argument_bytes"]
         assert 1.0 <= args <= 1.05, (tag, args)
         assert got["temp_bytes"] <= 1.25 * ref["temp_bytes"], tag
+
+
+@pytest.mark.parametrize("kind", ("forward", "train"))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dispatch_memory_within_the_references_band(arch, kind, moe_reference):
+    full = get_config(arch)
+    cfg = reduced(full, dtype="bfloat16", n_experts=full.n_experts,
+                  experts_per_token=full.experts_per_token)
+    mesh, train = make_fake_mesh((2, 2), ("data", "model")), kind == "train"
+    p = param_structs(M._moe_specs(cfg, 1), torch.bfloat16, mesh, requires_grad=train)
+    x = struct(mesh, ("batch", None, None), (MOE_BATCH, MOE_SEQ, cfg.d_model), torch.bfloat16,
+               requires_grad=train)
+
+    def forward(p, x):
+        return layers.moe_block({k: v[0] for k, v in p.items()}, x, cfg)
+
+    def grads(p, x):
+        y, aux = forward(p, x)
+        return torch.autograd.grad(torch.mean(torch.square(y.float())) + aux, [*p.values(), x])
+
+    _, _, got, _ = D.run_program(grads if train else forward, (p, x), mesh)
+    ref = moe_reference()[f"{arch}:{kind}"]
+    assert got["argument_bytes"] == ref["argument_bytes"], (arch, kind)
+    assert got["temp_bytes"] <= 1.25 * ref["temp_bytes"], (
+        arch, kind, got["temp_bytes"] / ref["temp_bytes"])
 
 
 def _values_rank(rank: int, port: int, out: str) -> None:
@@ -220,6 +316,14 @@ def _values_rank(rank: int, port: int, out: str) -> None:
                           (torch.randn(4, 3, 10, generator=g),
                            torch.randint(0, 10, (4, 3), generator=g)),
                           ([Shard(0), Shard(2)], [Shard(0), Replicate()])),
+        # 24 rows into 4 experts' 3 slots (target 12: dropped, some rows
+        # added twice); rows split over "data" or whole, targets whole
+        **{f"scatter_rows {name}": both(
+            lambda t, d: sharding.scatter_rows((4, 3, 5), t, d, ("experts",)),
+            (torch.randint(0, 13, (24,), generator=g), torch.randn(24, 5, generator=g)),
+            ([Replicate(), Replicate()], rows))
+           for name, rows in (("rows split", [Shard(0), Replicate()]),
+                              ("rows whole", [Replicate(), Replicate()]))},
     }
     if rank == 0:
         with open(out, "w") as f:

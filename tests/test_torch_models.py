@@ -3,8 +3,9 @@
 For reduced hymba-1.5b (parallel attention + Mamba-2 in every layer; the
 window cut to 16 so that prompts run past it and the ring cache is
 rolled), hymba with 2 kv-heads (grouped-query attention inside the
-hybrid), qwen2.5-3b (dense, GQA, QKV bias), mamba2-2.7b (attention-
-free), dbrx-132b (MoE, 4 experts top-2), arctic-480b (MoE beside a dense
+hybrid), qwen2.5-3b (dense, GQA, QKV bias), granite-3-8b (GQA, tied
+embeddings), stablelm-3b (full multi-head attention), command-r-plus-104b
+(rope_theta 7.5e7), mamba2-2.7b (attention-free), dbrx-132b (MoE, 4 experts top-2), arctic-480b (MoE beside a dense
 residual MLP), llama-3.2-vision-90b (10 layers: two groups of four self
 layers and a gated cross layer, 16 image tokens) and musicgen-medium (4
 codebooks summed at the input, 4 heads), one JAX parameter tree is
@@ -60,6 +61,9 @@ CASES = {
     "hymba": ("hymba-1.5b", dict(sliding_window=16), 1e-3),
     "hymba-gqa": ("hymba-1.5b", dict(sliding_window=16, n_kv_heads=2), 1e-3),
     "qwen": ("qwen2.5-3b", {}, 1e-4),
+    "granite": ("granite-3-8b", {}, 1e-4),
+    "stablelm": ("stablelm-3b", {}, 1e-4),
+    "command-r-plus": ("command-r-plus-104b", {}, 1e-4),
     "mamba2": ("mamba2-2.7b", {}, 1e-3),
     "dbrx": ("dbrx-132b", {}, 1e-4),
     "arctic": ("arctic-480b", {}, 1e-4),

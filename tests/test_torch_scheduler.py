@@ -9,7 +9,9 @@ batcher through `dense`. Greedy tokens, tools, table versions and the
 admission and retirement ticks must be identical. Reduced qwen2.5-3b has
 full attention; reduced hymba-1.5b (window cut to 16, prompts longer than
 it, as the JAX batcher needs: ROADMAP.md queue 3) runs both kernels'
-plain versions in every prefill. Reduced dbrx-132b runs its decode ticks
+plain versions in every prefill; reduced mamba2-2.7b's cache is the SSM's
+state alone (no KV), spliced a slot at a time, and reduced granite-3-8b
+ties its embeddings. Reduced dbrx-132b runs its decode ticks
 through the experts at T = n_slots tokens (pad slots take capacity, as in
 the reference), reduced llama-3.2-vision-90b prefills each request with
 zero image embeddings and splices its image K/V per slot, and reduced
@@ -47,6 +49,8 @@ CPU = "cpu"
 POOLS = {
     "qwen": ("qwen2.5-3b", {}, (4, 12), 32),
     "hymba": ("hymba-1.5b", dict(sliding_window=16), (18, 30), 48),
+    "mamba2": ("mamba2-2.7b", {}, (4, 12), 32),
+    "granite": ("granite-3-8b", {}, (4, 12), 32),
     "dbrx": ("dbrx-132b", {}, (4, 12), 32),
     "vlm": ("llama-3.2-vision-90b", {}, (4, 12), 32),
     "musicgen": ("musicgen-medium", {}, (4, 12), 32),

@@ -1,7 +1,8 @@
 """The port's training path against the JAX package's, on the CPU.
 
-For the eight reduced configs of `tests/test_torch_models.py` (`CASES`:
-hymba with and without GQA, qwen2.5-3b, mamba2, dbrx and arctic (MoE), the
+For the eleven reduced configs of `tests/test_torch_models.py` (`CASES`:
+hymba with and without GQA, qwen2.5-3b, granite-3-8b, stablelm-3b,
+command-r-plus-104b, mamba2, dbrx and arctic (MoE), the
 VLM with its gates open and seeded image embeddings, musicgen's
 codebooks), one JAX parameter tree, its attention rescaled to a d_model
 fan-in (`M.attention_at_d_model_fan_in`, as that file does: at the init's
