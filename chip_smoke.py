@@ -212,19 +212,26 @@ package `repro`. Phases, each of which fails the run by raising:
                holding only its 8 of 16 experts (cut as they are drawn,
                its memory printed), the flash check at its own prefills, the
                refinement
-               over uneven row blocks (1,207 + 1,206), and two
+               over uneven row blocks (1,207 + 1,206), two
                data-parallel Trainer steps of full-width hymba-1.5b (2
                layers, float32) on a (2, 1) mesh, gradients, losses and
-               params within 1e-4 of (a)'s one device;
+               params within 1e-4 of (a)'s one device, and mamba2-2.7b
+               (MESH_SSM_LAYERS of 64 layers, full width, bf16) as
+               DTensors in the dry-run's layout, each rank holding half
+               the tied table's rows and half the SSM heads: a
+               MESH_SSM_PROMPT-token prefill and MESH_SSM_STEPS decode
+               steps through the partitioner, the logits against (a)'s
+               one device at tests/test_torch_bf16.py's tolerance;
  16. dryrun  — (run before 7) the dry-run (`repro_torch.launch.dryrun`,
                fake tensors over a fake process group) against the card.
-               (a) Three programs at world size 1 (`--mesh 1x1`), each
+               (a) Five programs at world size 1 (`--mesh 1x1`), each
                first dry-run in a process of its own, then run on the card
                on seeded bf16 tensors with the plain attention and scan
                (`use_kernel=False`, as the dry-run's): full-width hymba-1.5b's
                AdamW train step on 2 x 1,024 tokens (phase 13's, no remat,
                from the d_model fan-in), its 2,048-token prefill at batch 1
-               and a decode step with that cache. The dry-run's FLOPs a
+               and a decode step with that cache, and full-width
+               mamba2-2.7b's prefill and decode step alike. The dry-run's FLOPs a
                device must equal FlopCounterMode's on the card exactly, its
                peak (argument + temp + output bytes) must be within
                DRYRUN_MEMORY_GAP of `max_memory_allocated()` from a reset
@@ -233,7 +240,7 @@ package `repro`. Phases, each of which fails the run by raising:
                (CUDA events between syncs, median of DRYRUN_TIME_ROUNDS) is
                printed beside the roofline terms, their ratio the
                program's roofline share (recorded, no limit). (c) The
-               same three as DTensor programs on the card over the (1, 1)
+               same five as DTensor programs on the card over the (1, 1)
                mesh of an NCCL group of one (the partitioner's path:
                `common.sharding`'s project / blockwise / token_nll and the
                constraint points): the dry-run's own `CostMode` counts
@@ -455,13 +462,19 @@ MESH_DECODE_PROMPT, MESH_DECODE_STEPS = 1024, 8  # musicgen-medium, whole
 MESH_REFINE_ATOL = 1e-5  # tests/test_distributed.py's refinement tolerance
 MESH_TRAIN_LAYERS, MESH_TRAIN_SEQ = 2, 512  # hymba-1.5b full width, float32, batch 2
 MESH_TRAIN_ATOL = 1e-4  # grads (||d|| / ||ref|| a leaf), losses and params (max|d|)
+# mamba2-2.7b full width, bf16, as DTensors on the two gloo ranks (vocab and
+# SSM heads split over "model"): layers, prompt tokens, decode steps
+MESH_SSM_LAYERS, MESH_SSM_PROMPT, MESH_SSM_STEPS = 4, 512, 4
 MESH_WORKER_TIMEOUT_S = 600
 # the dry-run against the card (phase 16): (a) world-size-1 programs of
-# full-width hymba-1.5b, (kind, the dry-run's shape, global batch, tokens);
-# the decode step reads the prefill's cache (2,049 slots, windowed to 1,024)
-DRYRUN_ARCH = "hymba-1.5b"
-DRYRUN_PROGRAMS = (("train", "train_4k", 2, 1024), ("prefill", "prefill_32k", 1, 2048),
-                   ("decode", "decode_32k", 1, 2049))
+# full-width hymba-1.5b and mamba2-2.7b, (arch, kind, the dry-run's shape,
+# global batch, tokens); a decode step reads its prefill's cache (2,049
+# slots, hymba's windowed to 1,024)
+DRYRUN_PROGRAMS = (("hymba-1.5b", "train", "train_4k", 2, 1024),
+                   ("hymba-1.5b", "prefill", "prefill_32k", 1, 2048),
+                   ("hymba-1.5b", "decode", "decode_32k", 1, 2049),
+                   ("mamba2-2.7b", "prefill", "prefill_32k", 1, 2048),
+                   ("mamba2-2.7b", "decode", "decode_32k", 1, 2049))
 DRYRUN_MEMORY_GAP = 0.10  # |card peak - dry-run peak| / card peak
 DRYRUN_TIME_ROUNDS = 3
 DRYRUN_SEED = 0
@@ -3048,6 +3061,137 @@ def _mesh_batches(cfg):
             for _ in range(2)]
 
 
+def _mesh_ssm_config():
+    """mamba2-2.7b at MESH_SSM_LAYERS of its 64 layers, full width, bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("mamba2-2.7b"), n_layers=MESH_SSM_LAYERS)
+
+
+def _ssm_run(cfg, params, prompt, fed=None):
+    """A prefill of `prompt`, then MESH_SSM_STEPS decode steps (greedy
+    unless `fed` gives the tokens), on the plain scan (`use_kernel=False`,
+    as the partitioned program runs it): ([the prefill's last logits, each
+    step's], [tokens fed])."""
+    from repro_torch.models import model as M
+
+    s = prompt.shape[1]
+    logits, cache = M.prefill(cfg, params, {"tokens": prompt}, max_cache_len=s + MESH_SSM_STEPS,
+                              use_kernel=False)
+    out, tokens = [logits], []
+    for i in range(MESH_SSM_STEPS):
+        tok = fed[i] if fed is not None else out[-1].argmax(-1)
+        tokens.append(tok)
+        step, cache = M.decode_step(cfg, params, cache, {"token": tok, "pos": s + i},
+                                    use_kernel=False)
+        out.append(step)
+    return out, tokens
+
+
+@contextlib.contextmanager
+def _blocking_collectives():
+    """DTensor's collectives (the `_c10d_functional` ops its
+    redistributions issue) run inside the block as c10d's blocking calls on
+    the same group, and their waits as no-ops. On torch 2.11 the
+    functional `wait_tensor` of a gloo group's work over CUDA tensors
+    faults (SIGSEGV), while c10d's calls on the same tensors run: the two
+    gloo ranks of phase 15 (b) sharing one card run a DTensor program only
+    so. A reduce-scatter is an all-reduce and this rank's chunk; an
+    all-to-all, equal splits only, an all-gather and the chunks for this
+    rank: up to n times the bytes of DTensor's own collectives."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = torch.ops._c10d_functional
+    reduce_ops = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+                  "min": dist.ReduceOp.MIN, "product": dist.ReduceOp.PRODUCT}
+
+    def reduced(x, op, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=reduce_ops["sum" if op == "avg" else op], group=group)
+        return out / dist.get_world_size(group) if op == "avg" else out
+
+    def gathered(x, group):
+        x = x.contiguous()
+        out = x.new_empty((dist.get_world_size(group) * x.shape[0], *x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=group)
+        return out
+
+    class Blocking(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            packet = func._overloadpacket
+            if packet is ops.wait_tensor:
+                return args[0]
+            if packet is ops.all_gather_into_tensor:
+                return gathered(args[0], _resolve_process_group(args[2]))
+            if packet is ops.all_reduce:
+                return reduced(args[0], args[1], _resolve_process_group(args[2]))
+            if packet is ops.reduce_scatter_tensor:
+                group = _resolve_process_group(args[3])
+                whole = reduced(args[0], args[1], group)
+                return whole.chunk(args[2])[dist.get_rank(group)].clone()
+            if packet is ops.all_to_all_single:
+                x, out_splits, in_splits, name = args
+                group = _resolve_process_group(name)
+                n, rank = dist.get_world_size(group), dist.get_rank(group)
+                if len(set(out_splits or ())) > 1 or len(set(in_splits or ())) > 1:
+                    raise NotImplementedError("_blocking_collectives: uneven all-to-all")
+                return torch.cat([block.chunk(n)[rank] for block in
+                                  gathered(x, group).chunk(n)]).contiguous()
+            return func(*args, **(kwargs or {}))
+
+    with Blocking():
+        yield
+
+
+def _mesh_ssm_leg(dev, mesh, ref, say):
+    """Phase 15 (b)'s mamba2 leg on one of the two gloo ranks: (a)'s seeded
+    model as DTensors in the dry-run's layout on `mesh` (this rank's
+    blocks: half the vocabulary of the tied table, half the SSM heads), its
+    prefill and decode steps through the dry-run's partitioner
+    (`launch.dryrun.run_program` on real tensors, its collectives counted),
+    the logits against (a)'s one device at the bf16 rule."""
+    import torch
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.models.params import param_structs
+
+    cfg = _mesh_ssm_config()
+    params = _as_dtensors(_seeded_params(cfg, dev),
+                          param_structs(M.make_specs(cfg), torch.bfloat16, mesh), mesh)
+    prompt = _prompt(cfg, MESH_SSM_PROMPT, dev, 13)
+    fed = [f.to(dev) for f in ref["fed"]]
+    held = {}
+
+    def program(p):
+        held["logits"] = _ssm_run(cfg, p, prompt, fed)[0]
+
+    # DTensor's functional collectives fault on a gloo group's CUDA work
+    # (torch 2.11): they run as c10d's blocking calls
+    with _blocking_collectives():
+        _, colls, _, seconds = D.run_program(program, (params,), mesh, fake=False)
+        got = [g.full_tensor() for g in held.pop("logits")]
+    errs = [_bf16_check(g, r.to(dev), f"mamba2 on 2 ranks, logits {i}")
+            for i, (g, r) in enumerate(zip(got, ref["logits"]))]
+    out = dict(layers=cfg.n_layers, prompt=MESH_SSM_PROMPT, steps=MESH_SSM_STEPS,
+               max_abs_err=max(e["max_abs_err"] for e in errs),
+               table_rows_here=int(params["embed"].to_local().shape[0]),
+               heads_here=int(params["layers"]["ssm"]["a_log"].to_local().shape[-1]),
+               collectives=colls.count_by_type, collective_bytes=colls.bytes_by_type,
+               seconds=seconds)
+    say(f"mamba2-2.7b {cfg.n_layers} of 64 layers as DTensors, {out['table_rows_here']} of "
+        f"{cfg.vocab_size} table rows and {out['heads_here']} of {cfg.ssm_heads} SSM heads "
+        f"here: a {MESH_SSM_PROMPT}-token prefill and {MESH_SSM_STEPS} decode steps against "
+        f"world size 1's one device, max|d| {out['max_abs_err']:.3g}; collectives "
+        f"{json.dumps(colls.count_by_type)} ({colls.total_bytes:,} bytes); {seconds:.1f} s")
+    return out
+
+
 def _prompt(cfg, length, dev, seed):
     import torch
 
@@ -3329,6 +3473,18 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
         gc.collect()
         torch.cuda.empty_cache()
 
+        # ---- mamba2: (b)'s reference, the plain program on one device
+        ssm_cfg = _mesh_ssm_config()
+        params = _seeded_params(ssm_cfg, dev)
+        logits, fed = _ssm_run(ssm_cfg, params, _prompt(ssm_cfg, MESH_SSM_PROMPT, dev, 13))
+        refs["mamba2"] = dict(logits=[x.cpu() for x in logits], fed=[f.cpu() for f in fed])
+        log(f"mesh[world 1] mamba2-2.7b {ssm_cfg.n_layers} of 64 layers: a {MESH_SSM_PROMPT}-"
+            f"token prefill and {MESH_SSM_STEPS} greedy decode steps on one device, the "
+            f"references of the two gloo ranks' DTensor program")
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # ---- refinement of the ToolBench-like table, sharded over "model"
     train = bench.train_idx
     rel = torch.from_numpy(bench.relevance_matrix()[train]).to(dev)
@@ -3478,6 +3634,10 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
         say(f"musicgen-medium {MESH_DECODE_STEPS} decode steps, W/2 cache slots a rank, against "
             f"world size 1's baseline: max|d| {out['decode']['max_abs_err']:.3g}")
         del params, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out["mamba2"] = _mesh_ssm_leg(dev, mesh, refs["mamba2"], say)
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"]["flash_attention"] = flash_kernel.launches
@@ -3661,20 +3821,24 @@ def _card_arguments(kind, cfg, shape, dev):
     return params, cache, {"token": tokens(1), "pos": shape.seq_len - 1}
 
 
-def _as_dtensors(args, structs):
-    """The real arguments `args` as DTensors in the layout of the dry-run's
-    `structs` (this rank's blocks: at world size 1 the whole tensors)."""
+def _as_dtensors(args, structs, mesh):
+    """The real whole arguments `args` as DTensors in the layout of the
+    dry-run's `structs` on `mesh`: this rank's blocks, each cut here (at
+    world size 1 the whole tensors)."""
     import torch
     from torch.distributed.tensor import DTensor
     from torch.utils._pytree import tree_map
 
+    from repro_torch.common import sharding
+
     def wrap(t, struct):
         if not isinstance(struct, DTensor):
             return t
+        t = sharding.local_shard(t.detach(), sharding.dtensor_spec(struct, mesh), mesh)
         if tuple(t.shape) != tuple(struct.to_local().shape):
-            raise AssertionError(f"dryrun (c): an argument of shape {tuple(t.shape)} for a "
-                                 f"block of {tuple(struct.to_local().shape)}")
-        x = DTensor.from_local(t.detach(), struct.device_mesh, struct.placements,
+            raise AssertionError(f"dryrun: an argument's block of {tuple(t.shape)} for one "
+                                 f"of {tuple(struct.to_local().shape)}")
+        x = DTensor.from_local(t.contiguous(), struct.device_mesh, struct.placements,
                                run_check=False, shape=struct.shape, stride=struct.stride())
         return x.requires_grad_() if struct.requires_grad else x
 
@@ -3702,16 +3866,16 @@ def _dryrun_dtensor_leg(dev, card, one_dir, backend="nccl"):
                             world_size=1, rank=0)
     try:
         mesh = meshctx.make_mesh((1, 1), ("data", "model"), dev)
-        for kind, name, b, s in DRYRUN_PROGRAMS:
+        for arch, kind, name, b, s in DRYRUN_PROGRAMS:
             shape = D.resolve_shape(name, s, b)
-            rec = _dryrun_record(one_dir, DRYRUN_ARCH, shape.name, "1x1")
-            cfg = get_config(DRYRUN_ARCH)
+            rec = _dryrun_record(one_dir, arch, shape.name, "1x1")
+            cfg = get_config(arch)
             gc.collect()
             torch.cuda.empty_cache()
             before = torch.cuda.memory_allocated()
             fn, structs = D.build_program(cfg, shape, mesh, TrainConfig(optimizer="adamw"),
                                           remat=False)
-            args = _as_dtensors(_card_arguments(kind, cfg, shape, dev), structs)
+            args = _as_dtensors(_card_arguments(kind, cfg, shape, dev), structs, mesh)
             del structs
             gc.collect()
             torch.cuda.synchronize()
@@ -3731,21 +3895,21 @@ def _dryrun_dtensor_leg(dev, card, one_dir, backend="nccl"):
                        card_argument_bytes=base, card_counted_peak_bytes=(
                            mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]),
                        collectives=colls.count_by_type, seconds=seconds)
-            out[kind] = row
-            log(f"dryrun (c) ({kind}, {DRYRUN_ARCH} {shape.name}, DTensor on a (1, 1) NCCL "
+            out[f"{arch} {kind}"] = row
+            log(f"dryrun (c) ({kind}, {arch} {shape.name}, DTensor on a (1, 1) NCCL "
                 f"mesh): FLOPs dry-run {row['dryrun_flops']:.6e} card {row['card_flops']:.6e}; "
                 f"peak bytes dry-run {predicted:,} card {peak:,} (argument {base:,}; counted "
                 f"on the card {row['card_counted_peak_bytes']:,}), gap {gap:+.4f} (limit "
                 f"{DRYRUN_MEMORY_GAP}); collectives {json.dumps(colls.count_by_type)}; "
                 f"{seconds:.1f} s; {card}")
             if row["dryrun_flops"] != row["card_flops"]:
-                raise AssertionError(f"dryrun (c) ({kind}): FLOPs {row['dryrun_flops']} "
+                raise AssertionError(f"dryrun (c) ({arch} {kind}): FLOPs {row['dryrun_flops']} "
                                      f"against the card's {row['card_flops']}")
             if not abs(gap) <= DRYRUN_MEMORY_GAP:
-                raise AssertionError(f"dryrun (c) ({kind}): peak {predicted} against the "
+                raise AssertionError(f"dryrun (c) ({arch} {kind}): peak {predicted} against the "
                                      f"card's {peak} (gap {gap:+.4f}, limit {DRYRUN_MEMORY_GAP})")
             if any(colls.count_by_type.values()):
-                raise AssertionError(f"dryrun (c) ({kind}): collectives at world size 1: "
+                raise AssertionError(f"dryrun (c) ({arch} {kind}): collectives at world size 1: "
                                      f"{colls.count_by_type}")
     finally:
         dist.destroy_process_group()
@@ -3774,17 +3938,17 @@ def dryrun_phase(dev, card, tmp):
     # (b)'s processes first: they need no card and run beside (a)
     production = [(row, _dryrun_cmd(row[0], row[1], row[2], row[3], prod_dir))
                   for row in DRYRUN_PRODUCTION]
-    ones = {kind: _dryrun_cmd(DRYRUN_ARCH, name, "1x1",
-                              ("--global-batch", str(b), "--seq-len", str(s), "--no-remat",
-                               "--optimizer", "adamw"), one_dir)
-            for kind, name, b, s in DRYRUN_PROGRAMS}
+    ones = {(arch, kind): _dryrun_cmd(arch, name, "1x1",
+                                      ("--global-batch", str(b), "--seq-len", str(s),
+                                       "--no-remat", "--optimizer", "adamw"), one_dir)
+            for arch, kind, name, b, s in DRYRUN_PROGRAMS}
 
     # ---- (a) world size 1: the prediction against the card
-    for kind, name, b, s in DRYRUN_PROGRAMS:
-        _dryrun_wait(ones[kind], f"{DRYRUN_ARCH} {kind} at world size 1")
+    for arch, kind, name, b, s in DRYRUN_PROGRAMS:
+        _dryrun_wait(ones[arch, kind], f"{arch} {kind} at world size 1")
         shape = D.resolve_shape(name, s, b)
-        rec = _dryrun_record(one_dir, DRYRUN_ARCH, shape.name, "1x1")
-        cfg = get_config(DRYRUN_ARCH)
+        rec = _dryrun_record(one_dir, arch, shape.name, "1x1")
+        cfg = get_config(arch)
         fn, _ = D.build_program(cfg, shape, None, TrainConfig(optimizer="adamw"), remat=False)
         del _
         gc.collect()
@@ -3830,8 +3994,8 @@ def dryrun_phase(dev, card, tmp):
                    memory_upper_ms=terms["memory_upper_s"] * 1e3,
                    roofline_share=max(terms["compute_s"], terms["memory_s"]) * 1e3 / card_ms,
                    dominant=terms["dominant"], dryrun_seconds=rec["compile_s"])
-        out["programs"][kind] = row
-        log(f"dryrun ({kind}, {DRYRUN_ARCH} {shape.name}, world size 1): FLOPs dry-run "
+        out["programs"][f"{arch} {kind}"] = row
+        log(f"dryrun ({kind}, {arch} {shape.name}, world size 1): FLOPs dry-run "
             f"{row['dryrun_flops']:.6e} card {row['card_flops']:.6e}; peak bytes dry-run "
             f"{predicted:,} (argument {mem['argument_bytes']:,} + temp {mem['temp_bytes']:,} + "
             f"output {mem['output_bytes']:,}) card {peak:,} (argument {base:,}; earlier "
@@ -3842,10 +4006,11 @@ def dryrun_phase(dev, card, tmp):
             f"{row['memory_upper_ms']:.3f} ms), share {row['roofline_share']:.4f}, dominant "
             f"{row['dominant']}; the dry-run ran {row['dryrun_seconds']:.1f} s on the host; {card}")
         if row["dryrun_flops"] != row["card_flops"]:
-            raise AssertionError(f"dryrun ({kind}): FLOPs {row['dryrun_flops']} against the "
+            raise AssertionError(f"dryrun ({arch} {kind}): FLOPs {row['dryrun_flops']} against "
+                                 f"the "
                                  f"card's {row['card_flops']}")
         if not abs(gap) <= DRYRUN_MEMORY_GAP:
-            raise AssertionError(f"dryrun ({kind}): peak {predicted} against the card's {peak} "
+            raise AssertionError(f"dryrun ({arch} {kind}): peak {predicted} against the card's {peak} "
                                  f"(gap {gap:+.4f}, limit {DRYRUN_MEMORY_GAP})")
 
     # ---- (c) the same programs as DTensors on the card, over an NCCL group of one

@@ -236,12 +236,17 @@ def _shape_queries() -> frozenset:
         torch.ops.prim.layout.default})
 
 
-def _wait_tensor():
-    """`_c10d_functional.wait_tensor` (registered once a collective module
-    is imported)."""
+def _same_storage_ops() -> tuple:
+    """The functional collectives' ops whose output is their input on a
+    device (registered once a collective module is imported):
+    `wait_tensor`, and where this torch has it `_wrap_tensor_autograd`, the
+    wrapper an eager collective's output takes outside a trace (a fake run
+    waits instead)."""
     import torch.distributed._functional_collectives  # noqa: F401
 
-    return torch.ops._c10d_functional.wait_tensor
+    ops = torch.ops._c10d_functional
+    return tuple(getattr(ops, name) for name in ("wait_tensor", "_wrap_tensor_autograd")
+                 if hasattr(ops, name))
 
 
 def _tensors(tree) -> list:
@@ -289,7 +294,7 @@ class CostMode:
         self._peak_at = 0
         self._seen = WeakIdKeyDictionary()  # storage -> bytes (0 for arguments)
         self._muted = 0  # inside DTensor's metadata propagation
-        wait_tensor = _wait_tensor()
+        same_storage = _same_storage_ops()
         self._unpatch = None
         owner = self
 
@@ -316,7 +321,7 @@ class CostMode:
                     owner.bytes_accessed += sum(
                         t.numel() * t.element_size() for t in _tensors((args, kwargs, out)))
                 if owner.track_memory:
-                    if packet is wait_tensor:
+                    if packet in same_storage:
                         owner._same_storage(out, args[0])
                         return out
                     for t in _tensors(out):

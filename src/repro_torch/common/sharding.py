@@ -63,10 +63,10 @@ __all__ = [
     "struct",
     "to_local_block",
     "from_local_block",
-    "replicate",
     "unflatten",
     "wrap_local",
     "project",
+    "project_groups",
     "blockwise",
     "scatter_rows",
     "lookup_rows",
@@ -395,15 +395,6 @@ def from_local_block(local: torch.Tensor, spec: Spec, mesh: meshctx.Mesh, like):
                       shape)
 
 
-def replicate(x):
-    """DTensor `x` redistributed to `Replicate()` on every mesh axis (the
-    all-gathers show in the dry-run's collectives); a plain tensor as it
-    is. For the ops DTensor has no sharding rule for."""
-    if not isinstance(x, DTensor):
-        return x
-    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
-
-
 def unflatten(x, dim: int, sizes: Sequence[int]):
     """`x.unflatten(dim, sizes)`. A DTensor sharded on `dim` over more ranks
     than `sizes[0]` divides cannot be viewed so (DTensor shards the first of
@@ -590,23 +581,115 @@ def scatter_rows(shape: Sequence[int], target: torch.Tensor, data: torch.Tensor,
                                                           one_rank_replicates=True))
 
 
+def project_groups(eq: str, x, w, groups: Sequence) -> list:
+    """`torch.einsum(eq, x, w)` cut along its last dimension (a column of
+    `w` each) into `groups` of consecutive columns, one part a group. A
+    group is (width, unit, axes).
+
+    On plain tensors: the one product, and a view of each group's columns.
+    So too on DTensors when no group's last axis resolves to a mesh axis:
+    nothing would stay split.
+
+    Otherwise one `project` a group, of its columns of `w` alone, placed by
+    the group's logical `axes`; the last of them places the group's columns
+    in blocks of `unit` (an SSM head's), resolved as `spec_for` resolves
+    the count of units, so a rank's block is whole units. Adjacent groups
+    placed alike with their columns whole are one product, and a view each.
+    A cut of the one product at columns that are not its shards' edges
+    would gather the whole product onto every rank; here each group comes
+    out in the layout its consumer needs, and only the groups whole over an
+    axis are gathered."""
+    specs = None
+    if isinstance(x, DTensor):
+        mesh = meshctx.current_mesh()
+        ins, out = eq.replace(" ", "").split("->")
+        xs, ws = ins.split(",")
+        size = {**dict(zip(xs, x.shape)), **dict(zip(ws, w.shape))}
+        lead = tuple(size[c] for c in out[:-1])
+        specs = [spec_for(axes, mesh.axis_names, lead + (width // unit,),
+                          meshctx.axis_sizes_dict(mesh)) for width, unit, axes in groups]
+        if not any(spec[-1] for spec in specs):
+            specs = None
+    if specs is None:
+        runs = [(0, len(groups), project(eq, x, w))]
+    else:
+        runs, at, i = [], 0, 0
+        while i < len(groups):
+            j = i + 1
+            while j < len(groups) and specs[i][-1] is None and specs[j] == specs[i]:
+                j += 1
+            width = sum(g[0] for g in groups[i:j])
+            runs.append((i, j, project(eq, x, w[..., at:at + width]).redistribute(
+                mesh.device_mesh, _placements(mesh, specs[i], one_rank_replicates=True))))
+            i, at = j, at + width
+    parts = []
+    for i, j, y in runs:
+        if j - i == 1:
+            parts.append(y)
+            continue
+        offsets = np.cumsum([0] + [g[0] for g in groups[i:j]])
+        parts += [y[..., a:b] for a, b in zip(offsets[:-1], offsets[1:])]
+    return parts
+
+
 def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """`table[tokens]`. On a DTensor table each rank looks up its rows of
-    tokens in the table gathered whole (replicated) first: DTensor's rules
-    for the lookup's backward (index_put) and for a tied table's embedding
-    do not hold across torch releases; the gather is a cost GSPMD may not
-    pay."""
+    """`table[tokens]`.
+
+    On a DTensor table the lookup is vocab-parallel, as GSPMD partitions the
+    reference's `jnp.take`: each rank reads its own block of the table (its
+    rows of the vocabulary, its columns of the embedding), looks up only the
+    tokens whose row lies in its block and writes zeros for the rest, and
+    the partial rows are summed over the vocabulary's mesh axes. A row has
+    one rank that adds it and the others add zeros, so the sum is
+    `table[tokens]` exactly. The tokens (small) are gathered over the mesh
+    axes that split the table; the rows come back in the tokens' layout
+    with the embedding whole, the layout `_embed_tokens` constrains them
+    to. No rank holds more of the table than its block. The backward is
+    each rank's `index_add_` into its own block (`index_select`'s), brought
+    to the table's own placements (a share of the gradient is summed over
+    the axes the table is whole on and the tokens split), so a tied table's
+    lookup and head gradients sum in one layout.
+
+    The partial rows a rank builds are its share of the tokens by its block
+    of the columns. Where they would move more bytes than the whole table
+    (summed over the vocabulary's axes, an all-reduce, twice their bytes;
+    brought back to the tokens' layout where the table splits its columns
+    over an axis the tokens split, an all-to-all), as a prefill's or a
+    training batch's tokens may against a small table, the table is
+    gathered whole instead and each rank looks up its own tokens in it,
+    its gradient a share summed back onto the table's blocks. Either
+    path's buffers (the partial rows, or the gathered table) live only
+    through the lookup. A decode step's few tokens never gather it."""
     if not isinstance(table, DTensor):
         return table[tokens]
-    if isinstance(tokens, DTensor):
-        placements, rows = tokens.placements, tokens.to_local()
-    else:
-        placements, rows = [Replicate()] * table.device_mesh.ndim, tokens
-    # each rank's lookups give its share of the table's gradient
-    whole = replicate(table).to_local(
-        grad_placements=[Partial() if p.is_shard() else Replicate() for p in placements])
-    return wrap_local(whole[rows], table.device_mesh, placements,
-                      (*tokens.shape, table.shape[1]))
+    mesh = table.device_mesh
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    placed = tokens.placements
+    # the tokens whole over the axes that split the table
+    whole = [Replicate() if p.is_shard() else t for p, t in zip(table.placements, placed)]
+    rows = tokens.numel() // int(np.prod([mesh.size(i) for i, p in enumerate(whole)
+                                          if p.is_shard()]))
+    moved = rows * table.to_local().shape[1] * (
+        2 * any(p.is_shard(0) for p in table.placements)
+        + any(p.is_shard(1) and t.is_shard() for p, t in zip(table.placements, placed)))
+    if moved > table.numel():
+        full = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if t.is_shard() else Replicate() for t in placed])
+        return wrap_local(full[tokens.to_local()], mesh, placed, (*tokens.shape, table.shape[1]))
+    ids = tokens.redistribute(mesh, whole).to_local()
+    grads = [Partial() if t.is_shard() else p for p, t in zip(table.placements, whole)]
+    local = table.redistribute(mesh, table.placements).to_local(grad_placements=grads)
+    ctx = meshctx.current_mesh()
+    lo, hi = block_bounds(ctx, dtensor_spec(table, ctx)[0], table.shape[0])
+    at = ids - lo
+    hit = (at >= 0) & (at < hi - lo)
+    found = local.index_select(0, torch.where(hit, at, 0).reshape(-1)).reshape(*ids.shape, -1)
+    found = torch.where(hit[..., None], found, torch.zeros((), dtype=found.dtype))
+    out = [Partial() if p.is_shard(0) else Shard(ids.dim()) if p.is_shard(1) else t
+           for p, t in zip(table.placements, whole)]
+    found = wrap_local(found, mesh, out, (*tokens.shape, table.shape[1]))
+    return found.redistribute(mesh, placed)
 
 
 def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

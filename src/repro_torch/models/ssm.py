@@ -15,13 +15,13 @@ The reference's two sharding constraints (the scan's input over
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.common.sharding import logical_constraint as shard
-from repro_torch.common.sharding import blockwise, project
+from repro_torch.common.sharding import DTensor, blockwise, project, project_groups
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -103,13 +103,47 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     return F.silu(out + b)
 
 
-def _split_zxbcdt(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    di = cfg.d_inner
-    gn = cfg.ssm_n_groups * cfg.ssm_state
-    z = zxbcdt[..., :di]
-    xbc = zxbcdt[..., di:2 * di + 2 * gn]
-    dt = zxbcdt[..., 2 * di + 2 * gn:]
-    return z, xbc, dt
+def _in_groups(cfg: ModelConfig) -> tuple:
+    """in_proj's column groups for `project_groups`: z, x, B, C and dt. z
+    and x (d_inner = H·P: a block of whole heads is a block of columns)
+    split over the SSM heads; B and C (G·N each) whole, as the scan reads
+    them, and dt (H) whole beside them, one product with them, so that a
+    rank computes as many of in_proj's columns as it would of the one
+    product (dt is then cut to its heads locally)."""
+    heads, rows = ("batch", None, "ssm_heads"), ("batch", None, None)
+    di, gn, p = cfg.d_inner, cfg.ssm_n_groups * cfg.ssm_state, cfg.ssm_head_dim
+    return ((di, p, heads), (di, p, heads), (gn, 1, rows), (gn, 1, rows),
+            (cfg.ssm_heads, 1, rows))
+
+
+def _conv_parts(p: dict, parts: Sequence[torch.Tensor]) -> tuple:
+    """The causal conv of xBC's channel parts (x, B, C), each in the
+    layout it comes in. On plain tensors one conv of the channels joined.
+    Where x comes with its channels split (over the SSM heads), each rank
+    convolves its blocks of each part (`blockwise`: the conv is depthwise,
+    so a block of channels needs only its own weights), x over the heads,
+    B and C whole; where they are whole, DTensor's own ops convolve each
+    part as it lies."""
+    w, bias = p["conv_w"], p["conv_b"]
+    x = parts[0]
+    if not isinstance(x, DTensor):
+        xbc = _causal_conv(torch.cat(parts, dim=-1), w, bias)
+        return tuple(xbc.split([t.shape[-1] for t in parts], dim=-1))
+    split = any(pl.is_shard(x.dim() - 1) for pl in x.placements)
+    out, at = [], 0
+    for t, heads in zip(parts, ("ssm_heads", None, None)):
+        c = t.shape[-1]
+        args = (t, w[:, at:at + c], bias[at:at + c])
+        out.append(blockwise(_causal_conv, args, (("batch", None, heads), (None, heads), (heads,)),
+                             (("batch", None, heads),)) if split else _causal_conv(*args))
+        at += c
+    return tuple(out)
+
+
+def _whole_channels(parts: tuple) -> torch.Tensor:
+    """xBC's channel parts joined, its channels whole (the decode cache's
+    layout)."""
+    return torch.cat([shard(t, "batch", None, None) for t in parts], dim=-1)
 
 
 _HEADS = ("batch", None, "ssm_heads", None)
@@ -138,13 +172,12 @@ def ssm_block(
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_groups
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = project("bsd,de->bse", x, p["in_proj"])
-    z, xbc, dt = _split_zxbcdt(zxbcdt, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = shard(xbc[..., :di].reshape(bsz, s, h, pdim), "batch", None, "ssm_heads", None)
-    b_mat = xbc[..., di:di + g * n].reshape(bsz, s, g, n)
-    c_mat = xbc[..., di + g * n:].reshape(bsz, s, g, n)
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [B,S,H]
+    z, *xbc, dt = project_groups("bsd,de->bse", x, p["in_proj"], _in_groups(cfg))
+    xs, b_mat, c_mat = _conv_parts(p, xbc)
+    xs = shard(xs.reshape(bsz, s, h, pdim), "batch", None, "ssm_heads", None)
+    b_mat = b_mat.reshape(bsz, s, g, n)
+    c_mat = c_mat.reshape(bsz, s, g, n)
+    dt = F.softplus(shard(dt, "batch", None, "ssm_heads").float() + p["dt_bias"])  # [B,S,H]
 
     # pad to a chunk multiple with dt=0 positions: exp(0)=1 decay and zero
     # input make padding an exact identity on the carried state
@@ -168,17 +201,17 @@ def ssm_block(
     out = shard(project("bse,ed->bsd", y, p["out_proj"]), "batch", "act_seq", None)
     if not return_cache:
         return out
-    conv_state = xbc_raw_tail(zxbcdt, cfg, s)
+    conv_state = xbc_raw_tail(xbc, cfg, s)
     return out, (conv_state, final_state.to(x.dtype))
 
 
-def xbc_raw_tail(zxbcdt: torch.Tensor, cfg: ModelConfig, s: int) -> torch.Tensor:
-    """Last (conv_width-1) pre-conv xBC rows — the decode conv cache. A
-    copy, as JAX's slice is: a view would keep the layer's whole
-    projection alive in the cache."""
-    _, xbc, _ = _split_zxbcdt(zxbcdt, cfg)
+def xbc_raw_tail(xbc: Sequence[torch.Tensor], cfg: ModelConfig, s: int) -> torch.Tensor:
+    """Last (conv_width-1) pre-conv xBC rows — the decode conv cache —
+    of xBC's channel parts (x, B, C), its channels whole. A copy, as JAX's
+    slice is: a view would keep the layer's whole projection alive in the
+    cache."""
     k = cfg.ssm_conv_width
-    return xbc[:, s - (k - 1):, :].clone()
+    return _whole_channels(tuple(t[:, s - (k - 1):] for t in xbc))
 
 
 def _state_step(st, dt, a, b_h, c_h, xs):
@@ -205,9 +238,9 @@ def ssm_decode(
     di, n, g = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_groups
     h, pdim = cfg.ssm_heads, cfg.ssm_head_dim
 
-    zxbcdt = project("bsd,de->bse", x, p["in_proj"])
-    z, xbc_new, dt = _split_zxbcdt(zxbcdt, cfg)
-    window = torch.cat([conv_state, xbc_new], dim=1)  # [B, K, C]
+    z, *xbc_new, dt = project_groups("bsd,de->bse", x, p["in_proj"], _in_groups(cfg))
+    # a token's xBC row, its channels whole as the cache keeps them
+    window = torch.cat([conv_state, _whole_channels(xbc_new)], dim=1)  # [B, K, C]
     conv_out = F.silu(project("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])[:, None, :]
     xs = conv_out[..., :di].reshape(bsz, h, pdim)
     b_mat = conv_out[..., di:di + g * n].reshape(bsz, g, n)
@@ -215,7 +248,7 @@ def ssm_decode(
     rep = h // g
     b_h = b_mat.repeat_interleave(rep, dim=1)  # [B,H,N]
     c_h = c_mat.repeat_interleave(rep, dim=1)
-    dt = F.softplus(dt.float() + p["dt_bias"]).reshape(bsz, h)
+    dt = F.softplus(shard(dt, "batch", None, "ssm_heads").float() + p["dt_bias"]).reshape(bsz, h)
     a = -torch.exp(p["a_log"].float())
     heads, state = ("batch", "ssm_heads", None), ("batch", "ssm_heads", None, None)
     y, st = blockwise(_state_step, (ssd_state.float(), dt, a, b_h.float(), c_h.float(),
