@@ -222,6 +222,21 @@ package `repro`. Phases, each of which fails the run by raising:
                MESH_SSM_PROMPT-token prefill and MESH_SSM_STEPS decode
                steps through the partitioner, the logits against (a)'s
                one device at tests/test_torch_bf16.py's tolerance;
+               command-r-plus-104b (MESH_FSDP_LAYERS of 64, full width,
+               bf16) as DTensors on a (2, 1) mesh, half of each weight's
+               "embed" rows a rank (FSDP): a MESH_FSDP_PROMPT-token
+               prefill at batch 1 and MESH_FSDP_STEPS one-token decode
+               steps, which "data" cannot split, the logits against (a)'s,
+               the decode steps issuing no all-to-all and moving under
+               MESH_FSDP_WIRE of the layers' weight bytes; and dbrx-132b
+               (MESH_MOE_LAYERS of 40, full width, bf16, gspmd MoE,
+               capacity factor 8) as DTensors on the (1, 2) mesh, 8 of 16
+               experts a rank: the forward of a MESH_MOE_PROMPT-token
+               prompt at batch MESH_MOE_BATCH against (a)'s, the tokens
+               routed alike at the bf16 rule (those routed otherwise, by a
+               rounding before the router, counted: at most
+               MESH_MOE_FLIPS), no storage of the whole gather-back buffer
+               [E * cap + 1, D] among those live at the run's peak;
  16. dryrun  — (run before 7) the dry-run (`repro_torch.launch.dryrun`,
                fake tensors over a fake process group) against the card.
                (a) Five programs at world size 1 (`--mesh 1x1`), each
@@ -250,7 +265,10 @@ package `repro`. Phases, each of which fails the run by raising:
                of their own started with the phase, `--no-probe`): each
                must exit 0 and write its record; its FLOPs and argument
                bytes a device, collectives by kind and dominant term are
-               printed. No kernel launches on this path;
+               printed; command-r-plus-104b's long_500k issues no
+               all-to-all, and dbrx-132b's gspmd prefill_32k holds no
+               buffer of the whole [E * cap + 1, D] at its peak
+               (DRYRUN_PRODUCTION_CHECKS). No kernel launches on this path;
  17. lint    — (run before 7) the port's AST lint, `python -m
                repro_torch.analysis src`, from the repo root in a process of
                its own with `jax` and `repro` blocked: it must exit 0 (its
@@ -465,6 +483,21 @@ MESH_TRAIN_ATOL = 1e-4  # grads (||d|| / ||ref|| a leaf), losses and params (max
 # mamba2-2.7b full width, bf16, as DTensors on the two gloo ranks (vocab and
 # SSM heads split over "model"): layers, prompt tokens, decode steps
 MESH_SSM_LAYERS, MESH_SSM_PROMPT, MESH_SSM_STEPS = 4, 512, 4
+# command-r-plus-104b full width, bf16, as DTensors on a (2, 1) mesh: a
+# one-token decode at batch 1, which "data" cannot split, each weight kept
+# in its FSDP block ("embed" rows halved); layers, prompt tokens, decode
+# steps, and the decode steps' wire as a share of the layers' weight bytes
+MESH_FSDP_LAYERS, MESH_FSDP_PROMPT, MESH_FSDP_STEPS = 2, 256, 4
+MESH_FSDP_WIRE = 0.01
+# dbrx-132b full width, bf16, moe_impl "gspmd", as DTensors on the (1, 2)
+# mesh (8 of 16 experts a rank), at capacity factor 8 (nothing drops);
+# layers, batch, prompt tokens of a prefill
+MESH_MOE_LAYERS, MESH_MOE_BATCH, MESH_MOE_PROMPT = 1, 2, 1024
+# the share of its tokens whose expert choices may differ from one
+# device's: a bf16 rounding before the router flips near-tied choices (46
+# of this leg's 2,048 tokens on an H100; 1-5 % of a reduced dbrx's on two
+# CPU gloo ranks, none in float32)
+MESH_MOE_FLIPS = 0.25
 MESH_WORKER_TIMEOUT_S = 600
 # the dry-run against the card (phase 16): (a) world-size-1 programs of
 # full-width hymba-1.5b and mamba2-2.7b, (arch, kind, the dry-run's shape,
@@ -487,7 +520,16 @@ DRYRUN_PRODUCTION = (
                                                  "--policy", "tp_kvs")),
     ("llama-3.2-vision-90b", "prefill_32k", "single", ()),
     ("hymba-1.5b", "long_500k", "multi", ()),
+    ("command-r-plus-104b", "long_500k", "single", ()),
+    ("dbrx-132b", "prefill_32k", "single", ()),
 )
+# (b)'s checks of a record beyond its exit: a one-token decode keeps its
+# FSDP weights where they lie (no all-to-all); the MoE gather-back is
+# partitioned (no buffer of the whole [E * cap + 1, D] among the peak's)
+DRYRUN_PRODUCTION_CHECKS = {
+    ("command-r-plus-104b", "long_500k", "single", ()): "no all-to-all",
+    ("dbrx-132b", "prefill_32k", "single", ()): "no whole out_buf",
+}
 DRYRUN_TIMEOUT_S = 420
 # the port's lint (phase 17): `python -m repro_torch.analysis src` from the
 # repo root in a process with jax and repro blocked, then a planted tree
@@ -2078,6 +2120,26 @@ def bf16_logits_close(got, ref):
 
 
 @contextlib.contextmanager
+def recorded_routes(into):
+    """Inside the block every `moe_route` call's expert choices (top_e,
+    [T, k]) are appended to `into`."""
+    from repro_torch.models import layers
+
+    route = layers.moe_route
+
+    def wrapper(p, xt, cfg):
+        out = route(p, xt, cfg)
+        into.append(out[3])
+        return out
+
+    layers.moe_route = wrapper
+    try:
+        yield
+    finally:
+        layers.moe_route = route
+
+
+@contextlib.contextmanager
 def recorded_model_calls(flash_calls, moe_inputs, ssd_calls=None):
     """Inside the block every flash_attention call of the model's layers
     appends ((q, k, v), kwargs) to `flash_calls`, every moe_block call
@@ -3070,18 +3132,41 @@ def _mesh_ssm_config():
     return dataclasses.replace(get_config("mamba2-2.7b"), n_layers=MESH_SSM_LAYERS)
 
 
-def _ssm_run(cfg, params, prompt, fed=None):
-    """A prefill of `prompt`, then MESH_SSM_STEPS decode steps (greedy
-    unless `fed` gives the tokens), on the plain scan (`use_kernel=False`,
-    as the partitioned program runs it): ([the prefill's last logits, each
-    step's], [tokens fed])."""
+def _mesh_fsdp_config():
+    """command-r-plus-104b at MESH_FSDP_LAYERS of its 64 layers, full
+    width, bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("command-r-plus-104b"), n_layers=MESH_FSDP_LAYERS)
+
+
+def _mesh_moe_config():
+    """dbrx-132b at MESH_MOE_LAYERS of its 40 layers, full width, bf16,
+    moe_impl "gspmd", at capacity factor 8: an expert's slots hold every
+    token, so nothing drops, and a routing choice that rounding flips moves
+    its own token alone, not the drops of the tokens after it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("dbrx-132b"), n_layers=MESH_MOE_LAYERS,
+                               capacity_factor=8.0)
+
+
+def _plain_run(cfg, params, prompt, steps, fed=None):
+    """A prefill of `prompt`, then `steps` decode steps (greedy unless
+    `fed` gives the tokens), on the plain attention and scan
+    (`use_kernel=False`, as the partitioned program runs them): ([the
+    prefill's last logits, each step's], [tokens fed])."""
     from repro_torch.models import model as M
 
     s = prompt.shape[1]
-    logits, cache = M.prefill(cfg, params, {"tokens": prompt}, max_cache_len=s + MESH_SSM_STEPS,
+    logits, cache = M.prefill(cfg, params, {"tokens": prompt}, max_cache_len=s + steps,
                               use_kernel=False)
     out, tokens = [logits], []
-    for i in range(MESH_SSM_STEPS):
+    for i in range(steps):
         tok = fed[i] if fed is not None else out[-1].argmax(-1)
         tokens.append(tok)
         step, cache = M.decode_step(cfg, params, cache, {"token": tok, "pos": s + i},
@@ -3169,7 +3254,7 @@ def _mesh_ssm_leg(dev, mesh, ref, say):
     held = {}
 
     def program(p):
-        held["logits"] = _ssm_run(cfg, p, prompt, fed)[0]
+        held["logits"] = _plain_run(cfg, p, prompt, MESH_SSM_STEPS, fed)[0]
 
     # DTensor's functional collectives fault on a gloo group's CUDA work
     # (torch 2.11): they run as c10d's blocking calls
@@ -3192,10 +3277,169 @@ def _mesh_ssm_leg(dev, mesh, ref, say):
     return out
 
 
-def _prompt(cfg, length, dev, seed):
+def _drawn_in_turns(cfg, dev, mesh):
+    """(a)'s seeded model as DTensors in the dry-run's layout on `mesh`,
+    this rank's blocks. The ranks draw in turns, so that one whole model is
+    on the card at a time beside the blocks."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.models import model as M
+    from repro_torch.models.params import param_structs
+
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            structs = param_structs(M.make_specs(cfg), torch.bfloat16, mesh)
+            params = _as_dtensors(_seeded_params(cfg, dev), structs, mesh)
+            del structs
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return params
+
+
+def _mesh_fsdp_decode_leg(dev, ref, say):
+    """Phase 15 (b)'s one-token decode on one of the two gloo ranks, mesh
+    (2, 1): (a)'s seeded command-r-plus-104b as DTensors in the dry-run's
+    layout (half of each weight's "embed" rows here: FSDP), a prefill at
+    batch 1 and decode steps through the dry-run's partitioner on real
+    tensors. "data" cannot split the one row, so each weight is contracted
+    where it lies and the partial products summed (`sharding.project`).
+    The logits against (a)'s one device at the bf16 rule; the decode
+    steps' collectives counted apart from the prefill's: no all-to-all,
+    and a wire under MESH_FSDP_WIRE of the layers' weight bytes. The
+    prefill's cache is as long as the prompt and grown by the decode's
+    slots on each rank's block between the two programs (torch 2.11's pad
+    rule gives a DTensor one placement on a two-axis mesh, which its stack
+    then refuses); the zero slots are those (a)'s prefill pads."""
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.common import meshctx
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import model as M
+    from repro_torch.optim.base import tree_leaves
+
+    mesh = meshctx.make_mesh((2, 1), ("data", "model"), dev)
+    cfg = _mesh_fsdp_config()
+    params = _drawn_in_turns(cfg, dev, mesh)
+    prompt = _prompt(cfg, MESH_FSDP_PROMPT, dev, 14)
+    s = prompt.shape[1]
+    fed = [f.to(dev) for f in ref["fed"]]
+    held = {}
+
+    def prefill(p):
+        held["logits"], held["cache"] = M.prefill(cfg, p, {"tokens": prompt}, max_cache_len=s,
+                                                  use_kernel=False)
+
+    def grown(c):  # [L, B, slots, Hkv, hd]: MESH_FSDP_STEPS zero slots more
+        local = F.pad(c.to_local(), (0, 0, 0, 0, 0, MESH_FSDP_STEPS))
+        return DTensor.from_local(local, c.device_mesh, c.placements, run_check=False)
+
+    def steps(p, cache):
+        held["steps"] = []
+        for i, tok in enumerate(fed):
+            logits, cache = M.decode_step(cfg, p, cache, {"token": tok, "pos": s + i},
+                                          use_kernel=False)
+            held["steps"].append(logits)
+
+    with _blocking_collectives():
+        _, pre, _, pre_seconds = D.run_program(prefill, (params,), mesh, fake=False)
+        cache = {k: grown(c) for k, c in held.pop("cache").items()}
+        _, colls, _, seconds = D.run_program(steps, (params, cache), mesh, fake=False)
+        got = [g.full_tensor() for g in [held.pop("logits"), *held.pop("steps")]]
+    errs = [_bf16_check(g, r.to(dev), f"command-r-plus on 2 ranks, logits {i}")
+            for i, (g, r) in enumerate(zip(got, ref["logits"]))]
+    weights = sum(w.numel() * w.element_size() for w in tree_leaves(params["layers"]))
+    wq = params["layers"]["attn"]["wq"]
+    out = dict(layers=cfg.n_layers, prompt=MESH_FSDP_PROMPT, steps=MESH_FSDP_STEPS,
+               max_abs_err=max(e["max_abs_err"] for e in errs),
+               embed_rows_here=int(wq.to_local().shape[1]), layer_weight_bytes=weights,
+               decode_collectives=colls.count_by_type, decode_collective_bytes=colls.bytes_by_type,
+               decode_wire_bytes=colls.wire_bytes, decode_wire_share=colls.wire_bytes / weights,
+               prefill_collectives=pre.count_by_type, prefill_wire_bytes=pre.wire_bytes,
+               seconds=pre_seconds + seconds)
+    say(f"command-r-plus-104b {cfg.n_layers} of 64 layers as DTensors on a (2, 1) mesh, "
+        f"{out['embed_rows_here']} of {cfg.d_model} embed rows of each weight here: a "
+        f"{MESH_FSDP_PROMPT}-token prefill at batch 1 and {MESH_FSDP_STEPS} one-token decode "
+        f"steps against world size 1's one device, max|d| {out['max_abs_err']:.3g}; the decode "
+        f"steps' collectives {json.dumps(colls.count_by_type)}, wire {colls.wire_bytes:,.0f} "
+        f"bytes, {out['decode_wire_share']:.3g} of the layers' {weights:,} weight bytes (limit "
+        f"{MESH_FSDP_WIRE}); the prefill's {json.dumps(pre.count_by_type)}, wire "
+        f"{pre.wire_bytes:,.0f} bytes; {out['seconds']:.1f} s")
+    if colls.count_by_type["all-to-all"]:
+        raise AssertionError(f"mesh: the one-token decode re-laid weights: {colls.count_by_type}")
+    if not out["decode_wire_share"] < MESH_FSDP_WIRE:
+        raise AssertionError(f"mesh: the one-token decode moved {colls.wire_bytes:,.0f} bytes, "
+                             f"{out['decode_wire_share']:.3g} of the weights' {weights:,}")
+    return out
+
+
+def _mesh_moe_gather_leg(dev, mesh, ref, say):
+    """Phase 15 (b)'s gspmd MoE on one of the two gloo ranks, mesh (1, 2):
+    (a)'s seeded dbrx-132b as DTensors in the dry-run's layout (8 of 16
+    experts here), the teacher-forced pass of a prefill at batch
+    MESH_MOE_BATCH (`M.forward`: every position's logits) through the
+    dry-run's partitioner on real tensors: the dispatch `scatter_rows` and
+    the gather-back `take_rows`, each rank on its experts' block. The
+    tokens that the router sends to the same experts as (a)'s one device
+    hold their logits to (a)'s at the bf16 rule; the others, where a bf16
+    rounding of the partial sums before the router flips a near-tied
+    choice, are counted, at most MESH_MOE_FLIPS of the tokens. No storage
+    of the whole gather-back buffer, [E * cap + 1, D], among those live at
+    the run's peak (`CostMode.peak_buffers()`)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import layers, model as M
+
+    cfg = _mesh_moe_config()
+    params = _drawn_in_turns(cfg, dev, mesh)
+    prompt = _prompt(cfg, MESH_MOE_PROMPT, dev, 15, batch=MESH_MOE_BATCH)
+    held, routes = {}, []
+
+    def program(p):
+        held["logits"] = M.forward(cfg, p, {"tokens": prompt}, use_kernel=False)[0]
+
+    with _blocking_collectives(), recorded_routes(routes):
+        cost, colls, _, seconds = D.run_program(program, (params,), mesh, fake=False)
+        got = held.pop("logits").full_tensor()
+        routes = [r.full_tensor() if isinstance(r, DTensor) else r for r in routes]
+    alike = torch.stack([(a == b.to(dev)).all(-1)
+                         for a, b in zip(routes, ref["routes"])]).all(0).reshape(got.shape[:-1])
+    flipped = int((~alike).sum())
+    e = _bf16_check(got[alike], ref["logits"].to(dev)[alike], "dbrx gspmd forward on 2 ranks")
+    cap = layers.moe_capacity(MESH_MOE_BATCH * MESH_MOE_PROMPT, cfg)
+    whole = [cfg.n_experts * cap + 1, cfg.d_model]
+    peak = cost.peak_buffers()
+    out = dict(layers=cfg.n_layers, batch=MESH_MOE_BATCH, prompt=MESH_MOE_PROMPT,
+               max_abs_err=e["max_abs_err"], rel_norm=e["rel_norm"], tokens=alike.numel(),
+               routes_flipped=flipped,
+               experts_here=int(params["layers"]["moe"]["w_gate"].to_local().shape[1]),
+               whole_out_buf=whole, peak_buffers=peak, peak_bytes=cost.peak_bytes,
+               collectives=colls.count_by_type, collective_bytes=colls.bytes_by_type,
+               seconds=seconds)
+    say(f"dbrx-132b {cfg.n_layers} of 40 layers as DTensors, gspmd MoE with "
+        f"{out['experts_here']} of {cfg.n_experts} experts here: a {MESH_MOE_PROMPT}-token "
+        f"forward at batch {MESH_MOE_BATCH} against world size 1's one device, max|d| "
+        f"{e['max_abs_err']:.3g} over the {alike.numel() - flipped} tokens routed alike "
+        f"({flipped} of {alike.numel()} routed to other experts, limit {MESH_MOE_FLIPS}); peak "
+        f"{cost.peak_bytes:,} bytes, its largest buffers {json.dumps(peak[:4])} (the whole "
+        f"out_buf would be {whole}); collectives {json.dumps(colls.count_by_type)} "
+        f"({colls.total_bytes:,} bytes); {seconds:.1f} s")
+    if flipped > MESH_MOE_FLIPS * alike.numel():
+        raise AssertionError(f"mesh: {flipped} of {alike.numel()} tokens routed to other experts")
+    if any(b[2] == whole for b in peak):
+        raise AssertionError(f"mesh: a rank held the whole MoE out_buf {whole}: {peak}")
+    return out
+
+
+def _prompt(cfg, length, dev, seed, batch=1):
     import torch
 
-    shape = (1, length, cfg.n_codebooks) if cfg.n_codebooks else (1, length)
+    shape = (batch, length, cfg.n_codebooks) if cfg.n_codebooks else (batch, length)
     g = torch.Generator(device=dev).manual_seed(seed)
     return torch.randint(0, cfg.vocab_size, shape, generator=g, device=dev)
 
@@ -3318,8 +3562,10 @@ def mesh_phase(dev, card, bench, native, q_all, tmp, backend="nccl"):
     Then the references of (b): two ranks sharing the card over gloo, mesh
     (1, 2), in processes of their own (`mesh_worker`): the same checks
     against (a)'s results, dbrx at capacity factor 8 with each rank
-    holding its E/2 experts, and two data-parallel Trainer steps on a (2, 1)
-    mesh. Returns the summary, with the world-size-1 prefills' flash inputs
+    holding its E/2 experts, two data-parallel Trainer steps on a (2, 1)
+    mesh, and three models as DTensors through the dry-run's partitioner
+    (mamba2-2.7b, command-r-plus-104b's one-token decode on a (2, 1) mesh,
+    dbrx-132b's gspmd MoE). Returns the summary, with the world-size-1 prefills' flash inputs
     in "flash_calls" (layer 0 and the last, for the kernel check after the
     path's launches are read) and the gloo ranks' own such checks in
     "gloo_flash_checks"; raises on any failed check."""
@@ -3476,12 +3722,38 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
         # ---- mamba2: (b)'s reference, the plain program on one device
         ssm_cfg = _mesh_ssm_config()
         params = _seeded_params(ssm_cfg, dev)
-        logits, fed = _ssm_run(ssm_cfg, params, _prompt(ssm_cfg, MESH_SSM_PROMPT, dev, 13))
+        logits, fed = _plain_run(ssm_cfg, params, _prompt(ssm_cfg, MESH_SSM_PROMPT, dev, 13),
+                                 MESH_SSM_STEPS)
         refs["mamba2"] = dict(logits=[x.cpu() for x in logits], fed=[f.cpu() for f in fed])
         log(f"mesh[world 1] mamba2-2.7b {ssm_cfg.n_layers} of 64 layers: a {MESH_SSM_PROMPT}-"
             f"token prefill and {MESH_SSM_STEPS} greedy decode steps on one device, the "
             f"references of the two gloo ranks' DTensor program")
         del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- command-r-plus and dbrx: (b)'s references, plain on one device
+        fsdp_cfg = _mesh_fsdp_config()
+        params = _seeded_params(fsdp_cfg, dev)
+        logits, fed = _plain_run(fsdp_cfg, params, _prompt(fsdp_cfg, MESH_FSDP_PROMPT, dev, 14),
+                                 MESH_FSDP_STEPS)
+        refs["fsdp_decode"] = dict(logits=[x.cpu() for x in logits], fed=[f.cpu() for f in fed])
+        del params, logits
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_cfg = _mesh_moe_config()
+        params = _seeded_params(moe_cfg, dev)
+        prompt = _prompt(moe_cfg, MESH_MOE_PROMPT, dev, 15, batch=MESH_MOE_BATCH)
+        routes = []
+        with recorded_routes(routes):
+            logits = M.forward(moe_cfg, params, {"tokens": prompt}, use_kernel=False)[0]
+        refs["moe_gather"] = dict(logits=logits.cpu(), routes=[r.cpu() for r in routes])
+        log(f"mesh[world 1] command-r-plus-104b {fsdp_cfg.n_layers} of 64 layers: a "
+            f"{MESH_FSDP_PROMPT}-token prefill and {MESH_FSDP_STEPS} greedy decode steps; "
+            f"dbrx-132b {moe_cfg.n_layers} of 40 layers: a {MESH_MOE_PROMPT}-token forward at "
+            f"batch {MESH_MOE_BATCH}; on one device, the references of the two gloo ranks' "
+            f"DTensor programs")
+        del params, prompt, logits
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3638,6 +3910,12 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
         torch.cuda.empty_cache()
 
         out["mamba2"] = _mesh_ssm_leg(dev, mesh, refs["mamba2"], say)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["fsdp_decode"] = _mesh_fsdp_decode_leg(dev, refs["fsdp_decode"], say)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["moe_gather"] = _mesh_moe_gather_leg(dev, mesh, refs["moe_gather"], say)
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"]["flash_attention"] = flash_kernel.launches
@@ -3835,10 +4113,13 @@ def _as_dtensors(args, structs, mesh):
         if not isinstance(struct, DTensor):
             return t
         t = sharding.local_shard(t.detach(), sharding.dtensor_spec(struct, mesh), mesh)
+        t = t.contiguous()
+        if t.untyped_storage().nbytes() != t.numel() * t.element_size():
+            t = t.clone()  # a block of its own: the whole tensor can be freed
         if tuple(t.shape) != tuple(struct.to_local().shape):
             raise AssertionError(f"dryrun: an argument's block of {tuple(t.shape)} for one "
                                  f"of {tuple(struct.to_local().shape)}")
-        x = DTensor.from_local(t.contiguous(), struct.device_mesh, struct.placements,
+        x = DTensor.from_local(t, struct.device_mesh, struct.placements,
                                run_check=False, shape=struct.shape, stride=struct.stride())
         return x.requires_grad_() if struct.requires_grad else x
 
@@ -3930,14 +4211,16 @@ def dryrun_phase(dev, card, tmp):
 
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun as D
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.models.layers import moe_capacity
     from repro_torch.training.train_step import TrainConfig
 
     out = {"card": card, "programs": {}, "production": {}}
     prod_dir, one_dir = Path(tmp) / "production", Path(tmp) / "one"
     t0 = time.perf_counter()
     # (b)'s processes first: they need no card and run beside (a)
-    production = [(row, _dryrun_cmd(row[0], row[1], row[2], row[3], prod_dir))
-                  for row in DRYRUN_PRODUCTION]
+    production = [(row, prod_dir / str(i), _dryrun_cmd(*row, prod_dir / str(i)))
+                  for i, row in enumerate(DRYRUN_PRODUCTION)]
     ones = {(arch, kind): _dryrun_cmd(arch, name, "1x1",
                                       ("--global-batch", str(b), "--seq-len", str(s),
                                        "--no-remat", "--optimizer", "adamw"), one_dir)
@@ -4017,10 +4300,10 @@ def dryrun_phase(dev, card, tmp):
     out["dtensor"] = _dryrun_dtensor_leg(dev, card, one_dir)
 
     # ---- (b) the production meshes, host-only
-    for (arch, shapes, mesh_kind, more), proc in production:
+    for (arch, shapes, mesh_kind, more), row_dir, proc in production:
         lines = _dryrun_wait(proc, f"{arch} {shapes} {mesh_kind} {' '.join(more)}")
         for shape_name in shapes.split(","):
-            rec = _dryrun_record(prod_dir, arch, shape_name, mesh_kind)
+            rec = _dryrun_record(row_dir, arch, shape_name, mesh_kind)
             mem, colls = rec["per_device"], rec["collectives"]
             key = f"{arch} x {shape_name} x {mesh_kind}" + (f" {' '.join(more)}" if more else "")
             out["production"][key] = dict(
@@ -4034,6 +4317,20 @@ def dryrun_phase(dev, card, tmp):
                 + json.dumps(colls["count_by_type"]) + f", dominant "
                 f"{rec['roofline']['dominant']}, repeat_kv {rec['repeat_kv']}, "
                 f"{len(rec['replicated_views'])} replicated views, {rec['compile_s']:.1f} s")
+            check = DRYRUN_PRODUCTION_CHECKS.get((arch, shape_name, mesh_kind, more))
+            if check == "no all-to-all" and colls["count_by_type"]["all-to-all"]:
+                raise AssertionError(f"dryrun ({key}): the one-token decode re-laid weights: "
+                                     f"{colls['count_by_type']}")
+            if check == "no whole out_buf":
+                cfg, shape = get_config(arch), SHAPES[shape_name]
+                cap = moe_capacity(shape.global_batch * shape.seq_len, cfg)
+                whole = [cfg.n_experts * cap + 1, cfg.d_model]
+                out["production"][key]["peak_buffers"] = rec["peak_buffers"]
+                log(f"dryrun ({key}): peak buffers {json.dumps(rec['peak_buffers'][:4])}; the "
+                    f"whole out_buf would be {whole}")
+                if any(b[2] == whole for b in rec["peak_buffers"]):
+                    raise AssertionError(f"dryrun ({key}): a rank held the whole MoE out_buf "
+                                         f"{whole}: {rec['peak_buffers']}")
         out["production_lines"] = out.get("production_lines", []) + lines
     out["seconds"] = time.perf_counter() - t0
     return out

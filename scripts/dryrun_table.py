@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
     python3 scripts/dryrun_table.py [experiments/dryrun_torch]
 
+    python3 scripts/dryrun_table.py DIR --against PARENT_DIR [--reference REF_DIR]
+
 Reads every <arch>__<shape>__<mesh>.json that `repro_torch.launch.dryrun`
 wrote (a cell that failed wrote none: its FAIL line is in the run's
 output) and prints, a cell a row: the seconds (the fake run, and the cell
@@ -14,7 +16,16 @@ collectives by kind (all-gather / all-reduce / reduce-scatter / all-to-all
 direct count, and the views run replicated; then the sums of seconds,
 and the cells' seconds again, an arch a row (a cell without a record
 reads FAIL).
+
+With `--against`, it compares DIR's cells with another run's (a parent
+commit's records) instead, a cell a row: FLOPs a device (now against
+then), peak GB a device and wire GB (probe-corrected where the record has
+its probes) then / now, and with `--reference` the same cell of the JAX
+package's `python -m repro.launch.dryrun` records beside them, and the
+all-to-alls now; then the cells whose FLOPs differ and the largest rises
+of peak and wire.
 """
+import argparse
 import glob
 import json
 import os
@@ -23,13 +34,72 @@ import sys
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all", "collective-permute")
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    root = argv[0] if argv else "experiments/dryrun_torch"
-    records = []
+def _load(root: str) -> dict:
+    """(arch, shape, mesh) -> record, for every record under `root`."""
+    records = {}
     for path in sorted(glob.glob(os.path.join(root, "*.json"))):
         with open(path) as f:
-            records.append(json.load(f))
+            r = json.load(f)
+        records[(r["arch"], r["shape"], r["mesh"])] = r
+    return records
+
+
+def _peak(r) -> float:
+    mem = r["per_device"]
+    return mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"]
+
+
+def _wire(r) -> float:
+    return (r["probe"] or r["collectives"])["wire_bytes"]
+
+
+def compare(now: dict, then: dict, ref: dict) -> None:
+    """Print DIR's cells against the parent's and the reference's."""
+    def cell(r, fn, scale=1e9):
+        return "-" if r is None else f"{fn(r) / scale:.4g}"
+
+    print("| arch | shape | mesh | flops/dev now (then) | peak GB then / now / ref "
+          "| wire GB then / now / ref | all-to-all now |")
+    print("|---|---|---|---|---|---|---|")
+    flops_differ, peak_up, wire_up = [], [], []
+    for key in sorted(now):
+        r, p, x = now[key], then.get(key), ref.get(key)
+        flops = r["per_device"]["flops"]
+        if p is not None and p["per_device"]["flops"] != flops:
+            flops_differ.append((key, flops / p["per_device"]["flops"]))
+        if p is not None:
+            peak_up.append((_peak(r) / _peak(p) - 1, key))
+            wire_up.append((_wire(r) / _wire(p) - 1 if _wire(p) else 0.0, key))
+        same = "" if p is None or p["per_device"]["flops"] == flops else (
+            f" ({p['per_device']['flops']:.4e})")
+        print(f"| {key[0]} | {key[1]} | {key[2]} | {flops:.4e}{same} | "
+              f"{cell(p, _peak)} / {cell(r, _peak)} / {cell(x, _peak)} | "
+              f"{cell(p, _wire)} / {cell(r, _wire)} / {cell(x, _wire)} | "
+              f"{r['collectives']['count_by_type']['all-to-all']} |")
+    print(f"\n{len(now)} cells, {sum(k in then for k in now)} with a parent record; FLOPs "
+          f"differ in {len(flops_differ)}: "
+          + ", ".join(f"{' '.join(k)} x{ratio:.4f}" for k, ratio in flops_differ))
+    for name, rises in (("peak", peak_up), ("wire", wire_up)):
+        if rises:
+            top, key = max(rises)
+            print(f"largest {name} rise: {100 * top:+.3f} % at {' '.join(key)}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?", default="experiments/dryrun_torch")
+    ap.add_argument("--against", help="a parent run's records: compare with them")
+    ap.add_argument("--reference", help="the JAX package's dry-run records")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    root = args.root
+    if args.against:
+        now = _load(root)
+        if not now:
+            print(f"no records under {root}", file=sys.stderr)
+            return 1
+        compare(now, _load(args.against), _load(args.reference) if args.reference else {})
+        return 0
+    records = list(_load(root).values())
     if not records:
         print(f"no records under {root}", file=sys.stderr)
         return 1

@@ -35,6 +35,7 @@ body's in-spec, out from its block under the out-spec.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -66,9 +67,11 @@ __all__ = [
     "unflatten",
     "wrap_local",
     "project",
+    "settled",
     "project_groups",
     "blockwise",
     "scatter_rows",
+    "take_rows",
     "lookup_rows",
     "token_nll",
 ]
@@ -447,22 +450,47 @@ def project(eq: str, x, w):
     gathered is FSDP; a decode token's row gathered is tensor parallelism);
     where only one of them does, it keeps it; else a contracted dimension
     sharded on `x` stays so, `w` is split alike, and the block is a partial
-    sum; else an output dimension of `w`, then of `x`, whose size the axis
-    divides is split over it. Autograd runs through the same blocks, so the
-    backward keeps the layout."""
+    sum; else, where `w` shards a dimension it contracts (FSDP's "embed")
+    and `x` is whole on the axis (a one-token decode's row, which "data"
+    cannot split), `x` is cut to the weight's block (a local slice), `w`
+    stays where it lies and the block is a partial sum, reduced at the next
+    constraint point, if that reduction (an all-reduce, twice the bytes of
+    this rank's output block) moves fewer bytes than re-laying this rank's
+    weight block would: a decode step's few rows take it, a batch-1
+    prefill's long rows do not; else an output dimension of `w`, then of
+    `x`, whose size the axis divides and that no later mesh axis splits is
+    split over it. Autograd runs through the same blocks, so the backward
+    keeps the layout."""
     if not isinstance(x, DTensor):
         return torch.einsum(eq, x, w)
     ins, out = eq.replace(" ", "").split("->")
     xs, ws = ins.split(",")
     size = {**dict(zip(xs, x.shape)), **dict(zip(ws, w.shape))}
     mesh = x.device_mesh
-    x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
+    # this rank's output block as the operands lie, and its weight block
+    out_shards = w_shards = 1
     for axis, (px, pw) in enumerate(zip(x.placements, w.placements)):
+        if (px.is_shard() and xs[px.dim] in out) or (pw.is_shard() and ws[pw.dim] in out):
+            out_shards *= mesh.size(axis)
+        if pw.is_shard():
+            w_shards *= mesh.size(axis)
+    partial_cheaper = 2 * math.prod(size[c] for c in out) // out_shards < w.numel() // w_shards
+    x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
+    # the axes last to first: a dimension that a later mesh axis shards, as
+    # the operands lie or as this product splits it, cannot take an earlier
+    # axis's split (DTensor orders a dimension's splits by mesh axis, the
+    # earlier outside): the later axis's blocks would be re-laid
+    taken: set = set()
+    for axis in reversed(range(mesh.ndim)):
+        px, pw = x.placements[axis], w.placements[axis]
         m = mesh.size(axis)
         on_x = xs[px.dim] if px.is_shard() else "_"
         on_w = ws[pw.dim] if pw.is_shard() else "_"
+        later = taken | {xs[p.dim] for p in x.placements[axis + 1:] if p.is_shard()} | {
+            ws[p.dim] for p in w.placements[axis + 1:] if p.is_shard()}
         free = [c for c in ws if c in out and c not in xs] + [c for c in xs if c in out]
-        split = next((c for c in free if size[c] % m == 0), None) if m > 1 else None
+        split = next((c for c in free if size[c] % m == 0 and c not in later),
+                     None) if m > 1 else None
         w_out, x_row = on_w in out and on_w not in xs, on_x in out
         if w_out and (not x_row or x.numel() < w.numel()):  # w's heads / ff / vocab
             cx, cw, keep = None, on_w, on_w
@@ -470,24 +498,38 @@ def project(eq: str, x, w):
             cx, cw, keep = on_x, (on_x if on_x in ws else None), on_x
         elif on_x in ws:  # contracted, sharded alike
             cx, cw, keep = on_x, on_x, None
+        elif on_w in xs and on_w not in out and px.is_replicate() and partial_cheaper:
+            cx, cw, keep = on_w, on_w, None  # w contracted in place, x cut to its block
         elif split is not None:
             cx = split if split in xs else None
             cw, keep = (split if split in ws else None), split
         else:  # nothing to split: this axis computes the whole block
             cx = cw = keep = None
-        x_pl.append(Shard(xs.index(cx)) if cx else Replicate())
-        w_pl.append(Shard(ws.index(cw)) if cw else Replicate())
+        taken |= {c for c in (cx, cw, keep) if c}
+        x_pl.insert(0, Shard(xs.index(cx)) if cx else Replicate())
+        w_pl.insert(0, Shard(ws.index(cw)) if cw else Replicate())
         # an operand whole along an axis that splits the output gets this
         # rank's share of its gradient there: a partial sum
-        x_grad.append(Partial() if keep and not cx else x_pl[-1])
-        w_grad.append(Partial() if keep and not cw else w_pl[-1])
+        x_grad.insert(0, Partial() if keep and not cx else x_pl[0])
+        w_grad.insert(0, Partial() if keep and not cw else w_pl[0])
         if keep:
-            out_pl.append(Shard(out.index(keep)))
+            out_pl.insert(0, Shard(out.index(keep)))
         else:
-            out_pl.append(Partial() if cx and cx not in out else Replicate())
+            out_pl.insert(0, Partial() if cx and cx not in out else Replicate())
     local = torch.einsum(eq, x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad),
                          w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad))
     return wrap_local(local, mesh, out_pl, tuple(size[c] for c in out))
+
+
+def settled(x):
+    """A DTensor with its partial sums reduced (each `Partial` placement
+    made `Replicate`, an all-reduce) and the rest of its layout kept; a
+    plain tensor as it is. For an output that no constraint point follows:
+    a partial sum is no value its caller can read."""
+    if not isinstance(x, DTensor) or not any(p.is_partial() for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate() if p.is_partial() else p
+                                          for p in x.placements])
 
 
 def blockwise(fn, args: Sequence, in_axes: Sequence, out_axes: Sequence):
@@ -578,6 +620,59 @@ def scatter_rows(shape: Sequence[int], target: torch.Tensor, data: torch.Tensor,
                   for a in mesh.axis_names]
     out = wrap_local(block.reshape((hi - lo,) + shape[1:]), mesh.device_mesh, placements, shape)
     return out.redistribute(mesh.device_mesh, _placements(mesh, out_spec,
+                                                          one_rank_replicates=True))
+
+
+def take_rows(buf: torch.Tensor, target: torch.Tensor,
+              axes: Sequence[Optional[str]] = ()) -> torch.Tensor:
+    """The rows of `buf` viewed as [N, D] at `target` [R], a target of N
+    reading a zero row (the MoE gather-back's dropped assignments): the
+    counterpart of `scatter_rows`. On plain tensors the plain index of
+    `buf`'s rows with one zero row appended.
+
+    On DTensors the gather is partitioned, the dispatch's map read the
+    other way: `buf` is placed by the logical `axes` (its first dimension
+    alone may shard: the experts), the rows of `target` are split over the
+    "batch" axes and whole over `buf`'s. Each rank reads only its rows
+    whose target lies in its block of `buf` and writes zeros for the rest;
+    the [R, D] block is a partial sum over `buf`'s axes, reduced to the
+    rows' layout. A row has one rank that reads it and the others add
+    zeros, so the result is the plain gather's exactly. No rank holds the
+    whole buffer. The backward is each rank's scatter of its rows'
+    gradients into its block of `buf`, summed over the rows' axes."""
+    width = buf.shape[-1]
+    if not isinstance(buf, DTensor):
+        flat = buf.reshape(-1, width)
+        return torch.cat([flat, flat.new_zeros((1, width))], dim=0)[target]
+    shape = tuple(int(n) for n in buf.shape)
+    mesh = meshctx.current_mesh()
+    sizes = meshctx.axis_sizes_dict(mesh)
+    buf_spec = spec_for(tuple(axes) + (None,) * (len(shape) - len(axes)), mesh.axis_names,
+                        shape, sizes)
+    if any(buf_spec[1:]):
+        raise ValueError(f"take_rows reads a buffer sharded on its first dimension only: "
+                         f"{buf_spec}")
+    buf_axes = _entry_axes(buf_spec[0])
+    rows_axes = tuple(a for a in _entry_axes(spec_for(("batch",), mesh.axis_names,
+                                                      target.shape[:1], sizes)[0])
+                      if a not in buf_axes)
+    rows_spec = (rows_axes[0] if len(rows_axes) == 1 else (rows_axes or None),)
+    split = {mesh.axis_names.index(a) for a in rows_axes}
+    block = to_local_block(buf, buf_spec, mesh, split).reshape(-1, width)
+    rows = target.shape[0]
+    if isinstance(target, DTensor):
+        target = to_local_block(target, rows_spec, mesh)
+    else:
+        target = local_shard(target, rows_spec, mesh)
+    lo, _ = block_bounds(mesh, buf_spec[0], shape[0])
+    at = target - lo * int(np.prod(shape[1:-1]))
+    hit = (at >= 0) & (at < block.shape[0])  # elsewhere (or dropped): a zero row
+    found = block.index_select(0, torch.where(hit, at, 0))
+    found = torch.where(hit[:, None], found, torch.zeros((), dtype=found.dtype))
+    placements = [Shard(0) if a in rows_axes else Partial() if a in buf_axes else Replicate()
+                  for a in mesh.axis_names]
+    out = wrap_local(found, mesh.device_mesh, placements, (rows, width))
+    return out.redistribute(mesh.device_mesh, _placements(mesh, rows_spec + (None,),
                                                           one_rank_replicates=True))
 
 

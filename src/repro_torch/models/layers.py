@@ -291,13 +291,12 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor,
         "ecd,edf->ecf", buf, p["w_up"]
     )
     h = shard(h, "experts", None, "ff")
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"]).reshape(e * cap, d)
-    out_buf = torch.cat([out_buf, out_buf.new_zeros((1, d))], dim=0)
-    # the gather-back reads global rows of the expert-sharded buffer: the
-    # reference pins it replicated first, and so does the port
-    out_buf = shard(out_buf, None, None)
-
-    gathered = out_buf[target]  # [T*k, D]
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["w_down"])
+    # the gather-back reads global rows of the expert-sharded buffer. The
+    # reference pins it replicated first (a miscompile workaround), which
+    # holds it whole on every rank; the port partitions the gather as it
+    # does the dispatch: the same values, and no rank holds the buffer
+    gathered = shard_lib.take_rows(out_buf, target, ("experts",))  # [T*k, D]
     w = (top_w.reshape(-1) * keep).to(x.dtype)
     y = (gathered * w[:, None]).reshape(t, k, d).sum(dim=1).reshape(b, s, d)
     y = shard(y, "batch", "act_seq", None)

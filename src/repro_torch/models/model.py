@@ -234,7 +234,9 @@ def _embed_tokens(cfg: ModelConfig, params, batch) -> torch.Tensor:
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = lyr.rms_norm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = shard_lib.project("bsd,dv->bsv", x, head)
+    # a one-token decode's head is contracted in place, its logits a
+    # partial sum over "data" (`project`): reduced here, the program's end
+    logits = shard_lib.settled(shard_lib.project("bsd,dv->bsv", x, head))
     if cfg.n_codebooks:
         logits = shard_lib.unflatten(logits, 2, (cfg.n_codebooks, cfg.vocab_size))
     return logits

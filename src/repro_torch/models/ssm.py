@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.sharding import logical_constraint as shard
-from repro_torch.common.sharding import DTensor, blockwise, project, project_groups
+from repro_torch.common.sharding import DTensor, Replicate, blockwise, project, project_groups
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
@@ -140,6 +140,29 @@ def _conv_parts(p: dict, parts: Sequence[torch.Tensor]) -> tuple:
     return tuple(out)
 
 
+def _window_conv(p: dict, window: torch.Tensor, parts: tuple) -> tuple:
+    """silu of the conv over a decode step's window [B, K, C] of whole
+    channels (the cache's), cut into xBC's parts [B, c] (x, B, C). On plain
+    tensors one product of the channels joined, and a view of each part.
+    On DTensors a product a part, each part of the window first laid out
+    as its part of the new row (`parts`, from in_proj) is: x over the SSM
+    heads where they split (a slice of the whole window, no collective).
+    A cut of the one product's output at channels off its shards' edges
+    would gather it, three times a layer."""
+    w, bias = p["conv_w"], p["conv_b"]
+    if not isinstance(window, DTensor):
+        out = F.silu(project("bkc,kc->bc", window, w) + bias)
+        return tuple(out.split([t.shape[-1] for t in parts], dim=-1))
+    out, at = [], 0
+    for t in parts:
+        c = t.shape[-1]
+        placed = [Replicate() if pl.is_partial() else pl for pl in t.placements]
+        part = window[..., at:at + c].redistribute(window.device_mesh, placed)
+        out.append(F.silu(project("bkc,kc->bc", part, w[:, at:at + c]) + bias[at:at + c]))
+        at += c
+    return tuple(out)
+
+
 def _whole_channels(parts: tuple) -> torch.Tensor:
     """xBC's channel parts joined, its channels whole (the decode cache's
     layout)."""
@@ -241,10 +264,12 @@ def ssm_decode(
     z, *xbc_new, dt = project_groups("bsd,de->bse", x, p["in_proj"], _in_groups(cfg))
     # a token's xBC row, its channels whole as the cache keeps them
     window = torch.cat([conv_state, _whole_channels(xbc_new)], dim=1)  # [B, K, C]
-    conv_out = F.silu(project("bkc,kc->bc", window, p["conv_w"]) + p["conv_b"])[:, None, :]
-    xs = conv_out[..., :di].reshape(bsz, h, pdim)
-    b_mat = conv_out[..., di:di + g * n].reshape(bsz, g, n)
-    c_mat = conv_out[..., di + g * n:].reshape(bsz, g, n)
+    x_conv, b_conv, c_conv = _window_conv(p, window, xbc_new)
+    xs = x_conv.reshape(bsz, h, pdim)
+    # B and C whole here, as every head reads them: [B, G·N], not yet
+    # repeated over the heads or in float32
+    b_mat = shard(b_conv, "batch", None).reshape(bsz, g, n)
+    c_mat = shard(c_conv, "batch", None).reshape(bsz, g, n)
     rep = h // g
     b_h = b_mat.repeat_interleave(rep, dim=1)  # [B,H,N]
     c_h = c_mat.repeat_interleave(rep, dim=1)

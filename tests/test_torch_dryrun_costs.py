@@ -28,12 +28,21 @@
     drops an argument the program never reads (the VLM decode's
     cross-attention K/V weights, read only at prefill: +3.4 %), so within
     0-5 % above; temp bytes at most 1.25x the reference's (0.01-0.81).
+* A one-token decode at batch 1, which "data" cannot split (reduced
+  command-r-plus-104b and dbrx-132b), against the reference's same
+  program over the 2x2 mesh (a JAX subprocess): no all-to-all, and wire
+  at most the reference's and at least a floor from the shapes
+  (`_one_token_wire_floor`: the lookup's and the partial products'
+  all-reduces). A weight re-laid onto an output dimension (an all-to-all
+  a weight) breaks it.
 * The MoE block alone, where its dispatch dominates (reduced dbrx-132b
   and arctic-480b with their own expert counts and top-k, 4 x 512
   tokens), forward and its gradients, against the reference's over the
   same 2x2 mesh (a JAX subprocess): temp bytes a device at most 1.25x the
-  reference's, argument bytes equal. A dispatch run replicated (every
-  rank scattering every row into the whole buffer) breaks the band.
+  reference's, argument bytes equal, and no storage of the whole
+  gather-back buffer [E * cap + 1, D] at the peak. A dispatch run
+  replicated (every rank scattering every row into the whole buffer), or
+  the gather-back's buffer pinned replicated, breaks the band.
 * Where the embedding lookup dominates (a decode step of reduced
   mamba2-2.7b, its table tied, and qwen2.5-3b, untied, with a 16,384-row
   vocabulary, 4 tokens) and the Mamba-2 block alone (reduced mamba2-2.7b,
@@ -44,9 +53,12 @@
   so gathered whole), breaks the band.
 * The partitioned ops compute the plain ones' values: on 4 gloo ranks
   (this file run as a script), `sharding.project` (FSDP + tensor-parallel
-  and partial-sum products), `gqa_attention` and the SSD scan through
-  `blockwise`, the vocab-parallel `token_nll`, the MoE dispatch's
-  `scatter_rows`, the vocab-parallel `lookup_rows` (alone, exactly; under
+  and partial-sum products; a one-token row against FSDP weights,
+  contracted in place, and a batch-1 prefill's rows, which re-lay them),
+  `gqa_attention` and the SSD scan through `blockwise`, the
+  vocab-parallel `token_nll`, the MoE dispatch's `scatter_rows` and its
+  gather-back's `take_rows` (dropped targets among them; its forward
+  exactly), the vocab-parallel `lookup_rows` (alone, exactly; under
   a tied head; musicgen's offset codebooks) and the Mamba-2 block and its
   decode step on in_proj's column groups, forward and gradients, against
   the same ops on plain tensors, within 1e-6 of the largest value
@@ -83,7 +95,7 @@ SUBPROCESS_TIMEOUT_S = 240
 FLOPS_FLOOR = {"train": 0.7, "prefill": 0.7, "decode": 0.25}
 
 # the reference's dry-run of each program over 4 forced host devices
-JAX_COSTS = """
+_JAX_COSTS = """
 import dataclasses, json, sys, jax
 from repro.common.meshctx import cost_analysis_dict, make_mesh, use_mesh
 from repro.configs import get_config
@@ -108,7 +120,13 @@ for arch in sys.argv[2].split(","):
             "count_by_type": colls.count_by_type, "bytes_by_type": colls.bytes_by_type,
             "argument_bytes": ma.argument_size_in_bytes, "temp_bytes": ma.temp_size_in_bytes}
 json.dump(out, open(sys.argv[1], "w"))
-""" % {"kinds": KINDS, "seq": SEQ, "batch": BATCH}
+"""
+JAX_COSTS = _JAX_COSTS % {"kinds": KINDS, "seq": SEQ, "batch": BATCH}
+
+# a one-token decode at batch 1, which "data" = 2 cannot split: an
+# attention architecture and a MoE one
+ONE_TOKEN_ARCHS = ("command-r-plus-104b", "dbrx-132b")
+JAX_ONE_TOKEN = _JAX_COSTS % {"kinds": ("decode",), "seq": SEQ, "batch": 1}
 
 
 # the MoE block alone: full expert counts and top-k at reduced width, and
@@ -269,8 +287,27 @@ def parts_reference(tmp_path_factory):
         p.communicate()
 
 
+@pytest.fixture(scope="module")
+def one_token_reference(tmp_path_factory):
+    """The reference's batch-1 decodes of ONE_TOKEN_ARCHS on 4 forced host
+    devices, started when the module starts; `wait()` gives its records."""
+    path = tmp_path_factory.mktemp("jax_one_token") / "one_token.json"
+    procs = [(path, _jax_subprocess(JAX_ONE_TOKEN, path, ",".join(ONE_TOKEN_ARCHS)))]
+    records = {}
+
+    def wait():
+        while procs:
+            records.update(_records(*procs.pop()))
+        return records
+
+    yield wait
+    for _, p in procs:
+        p.kill()
+        p.communicate()
+
+
 @pytest.fixture(scope="module", autouse=True)
-def fake_group(reference, moe_reference, parts_reference):
+def fake_group(reference, moe_reference, parts_reference, one_token_reference):
     """The fake process group this module makes is torn down after it; the
     reference's subprocesses start first."""
     yield
@@ -359,6 +396,60 @@ def test_costs_per_device_within_the_references_bands(arch, reference):
         assert got["temp_bytes"] <= 1.25 * ref["temp_bytes"], tag
 
 
+def _one_token_wire_floor(cfg) -> int:
+    """The wire bytes a decode step at batch 1 must move on the 2x2 mesh,
+    from its shapes (bf16, 2 bytes a value), each an all-reduce (its bytes
+    twice):
+
+    * the vocab-parallel lookup's partial rows, as `_decode_wire_floor`'s;
+    * the partial products: "data" cannot split the one row, so a weight
+      whose contracted "embed" rows it splits is contracted in place
+      (`sharding.project`) and this rank's output block, whole over "data"
+      and split over "model" where its axes resolve there, is summed over
+      "data": the attention's q, k and v, the MLP's gate and up, the SSM's
+      in_proj a layer, and the head."""
+    specs = M.make_specs(cfg)
+    axes, sizes = ("data", "model"), {"data": 2, "model": 2}
+
+    def reduced_block(shape, names) -> int:
+        spec = spec_for(names, axes, shape, sizes)
+        return 2 * 2 * math.prod(n // (2 if e else 1) for n, e in zip(shape, spec))
+
+    table = specs["embed"].shape
+    floor = 0
+    if spec_for(specs["embed"].axes, axes, table, sizes)[0]:
+        floor += reduced_block((cfg.n_codebooks or 1, table[1] // 2), (None, None))
+    for block in ("attn", "mlp", "ssm"):
+        for w in specs["layers"].get(block, {}).values():
+            if w.axes[1] == "embed":
+                floor += w.shape[0] * reduced_block(w.shape[2:], w.axes[2:])
+    head = specs.get("lm_head")
+    if head is not None:
+        floor += reduced_block(head.shape[1:], head.axes[1:])
+    else:
+        floor += reduced_block(table[:1], specs["embed"].axes[:1])
+    return floor
+
+
+@pytest.mark.parametrize("arch", ONE_TOKEN_ARCHS)
+def test_one_token_decode_within_the_references_band(arch, one_token_reference):
+    """A one-token decode at batch 1 keeps every FSDP weight in its block:
+    re-laying them onto an output dimension (an all-to-all a weight, then
+    the output gathered back) breaks the ceiling and the no-all-to-all
+    rule. Its wire at most the reference's, at least the floor from the
+    shapes."""
+    cfg = reduced(get_config(arch), dtype="bfloat16")
+    mesh = make_fake_mesh((2, 2), ("data", "model"))
+    fn, args = D.build_program(cfg, ShapeCase("decode", SEQ, 1, "decode"), mesh, TrainConfig())
+    _, colls, _, _ = D.run_program(fn, args, mesh)
+    ref = one_token_reference()[f"{arch}:decode"]
+    ref_colls = CollectiveStats(ref["bytes_by_type"], ref["count_by_type"])
+    assert colls.count_by_type["all-to-all"] == 0, (arch, colls.count_by_type)
+    assert colls.wire_bytes <= ref_colls.wire_bytes, (arch, colls.wire_bytes / ref_colls.wire_bytes)
+    floor = _one_token_wire_floor(cfg)
+    assert colls.wire_bytes >= floor, (arch, colls.wire_bytes, floor)
+
+
 @pytest.mark.parametrize("kind", ("forward", "train"))
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 def test_moe_dispatch_memory_within_the_references_band(arch, kind, moe_reference):
@@ -377,11 +468,15 @@ def test_moe_dispatch_memory_within_the_references_band(arch, kind, moe_referenc
         y, aux = forward(p, x)
         return torch.autograd.grad(torch.mean(torch.square(y.float())) + aux, [*p.values(), x])
 
-    _, _, got, _ = D.run_program(grads if train else forward, (p, x), mesh)
+    cost, _, got, _ = D.run_program(grads if train else forward, (p, x), mesh)
     ref = moe_reference()[f"{arch}:{kind}"]
     assert got["argument_bytes"] == ref["argument_bytes"], (arch, kind)
     assert got["temp_bytes"] <= 1.25 * ref["temp_bytes"], (
         arch, kind, got["temp_bytes"] / ref["temp_bytes"])
+    # the gather-back is partitioned: no rank holds the whole expert output
+    # with its zero row (the reference pins it replicated)
+    whole = [cfg.n_experts * layers.moe_capacity(MOE_BATCH * MOE_SEQ, cfg) + 1, cfg.d_model]
+    assert not [b for b in cost.peak_buffers() if b[2] == whole], (arch, kind, cost.peak_buffers())
 
 
 def _within_the_references_band(tag, got: dict, wire: float, ref: dict) -> None:
@@ -469,6 +564,7 @@ def _values_rank(rank: int, port: int, out: str) -> None:
     heads, rows = ("batch", None, "ssm_heads", None), ("batch", None, None, None)
     table, tokens = torch.randn(96, 8, generator=g), torch.randint(0, 96, (4, 6), generator=g)
     codes = torch.randint(0, 48, (4, 6, 4), generator=g)
+    take_targets = torch.cat([torch.tensor([12, 0, 11]), torch.randint(0, 13, (21,), generator=g)])
     vocab, by_rows = ([Shard(1), Shard(0)],), [Shard(0), Replicate()]
 
     def tied(t, i):
@@ -522,6 +618,28 @@ def _values_rank(rank: int, port: int, out: str) -> None:
             ([Replicate(), Replicate()], rows))
            for name, rows in (("rows split", [Shard(0), Replicate()]),
                               ("rows whole", [Replicate(), Replicate()]))},
+        # a one-token decode's row, whole over "data" (one row cannot
+        # split), against FSDP weights whose "embed" rows "data" splits: x
+        # cut to the weight's block, the output a partial sum ("one row");
+        # a batch-1 prefill's 16 rows, whose partial output would move more
+        # than the weight block, re-lay the weight instead ("prefill")
+        **{f"project {name}": both(lambda a, w: sharding.project(eq, a, w),
+                                   (torch.randn(*x_shape, generator=g),
+                                    torch.randn(*w_shape, generator=g)),
+                                   ([Replicate(), Replicate()], w_placed))
+           for name, eq, x_shape, w_shape, w_placed in (
+               ("one row", "bsd,dhk->bshk", (1, 1, 8), (8, 4, 5), [Shard(0), Shard(1)]),
+               ("one row, w_down", "bsf,fd->bsd", (1, 1, 8), (8, 6), [Shard(1), Shard(0)]),
+               ("one row, tied head", "bsd,dv->bsv", (1, 1, 8), (8, 12), [Shard(0), Shard(1)]),
+               ("prefill", "bsd,dhk->bshk", (1, 16, 8), (8, 4, 5), [Shard(0), Shard(1)]))},
+        # the MoE gather-back from a buffer of 4 experts' 3 slots split over
+        # "model": 24 rows (target 12: dropped, zeros; some rows read
+        # twice), split over "data" or whole
+        **{f"take_rows {name}": both(
+            lambda b, t: sharding.take_rows(b, t, ("experts",)),
+            (torch.randn(4, 3, 5, generator=g), take_targets), ([Replicate(), Shard(0)], rows))
+           for name, rows in (("rows split", [Shard(0), Replicate()]),
+                              ("rows whole", [Replicate(), Replicate()]))},
         # the vocab-parallel lookup: a table of 96 rows split over "model"
         # and its columns over "data", 24 tokens split over "data"; alone,
         # and tied (its transpose the head, as mamba2, hymba and granite
@@ -552,6 +670,14 @@ def _values_rank(rank: int, port: int, out: str) -> None:
         rows = sharding.lookup_rows(distribute_tensor(table, dm, vocab[0]),
                                     distribute_tensor(tokens, dm, by_rows)).full_tensor()
     res["lookup_rows exact"] = [(rows != table[tokens]).sum().item(), 0.0]
+    # and so is the gather-back, dropped targets included
+    buf = torch.randn(4, 3, 5, generator=g)
+    with meshctx.use_mesh(mesh):
+        taken = sharding.take_rows(distribute_tensor(buf, dm, [Replicate(), Shard(0)]),
+                                   distribute_tensor(take_targets, dm, by_rows),
+                                   ("experts",)).full_tensor()
+    want = torch.cat([buf.reshape(12, 5), buf.new_zeros(1, 5)])[take_targets]
+    res["take_rows exact"] = [(taken != want).sum().item(), 0.0]
     if rank == 0:
         with open(out, "w") as f:
             json.dump(res, f)
@@ -579,6 +705,7 @@ def test_partitioned_ops_compute_the_plain_values_on_4_gloo_ranks(tmp_path):
     for name, (value, grad) in res.items():
         assert value <= 1e-6 and grad <= 1e-6, (name, value, grad)
     assert res["lookup_rows exact"][0] == 0
+    assert res["take_rows exact"][0] == 0
 
 
 if __name__ == "__main__":
