@@ -1,0 +1,7 @@
+"""ttft_p95_ms, in a cell whose requests the host's launch pace sets: a
+reading of the host, left without a bound."""
+from portbench.harness import spec
+
+
+def read(run):
+    return spec.reader("ttft_p95_ms")(run)
