@@ -39,6 +39,7 @@ from repro_torch.core.retrieval import stable_topk
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_mask
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import span
 
 __all__ = [
     "rms_norm",
@@ -161,12 +162,16 @@ def attn_block(
     h, hd = q.shape[2], q.shape[3]
     if _kernel_path(use_kernel, x):
         # query row b*H + h reads key/value row (b*H + h) // g = b*Hkv + h // g
-        out = flash_attention(_heads_major(q), _heads_major(k), _heads_major(v),
-                              causal=True, window=cfg.sliding_window, use_kernel=True)
+        qh, kh, vh = _heads_major(q), _heads_major(k), _heads_major(v)
+        with span("model.attn.core"):
+            out = flash_attention(qh, kh, vh, causal=True, window=cfg.sliding_window,
+                                  use_kernel=True)
+        del qh, kh, vh  # freed here, as the call's temporaries were
         out = out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
     else:
         mask = attention_mask(s, s, True, cfg.sliding_window, 0, x.device)[None]
-        out = gqa_attention(q, k, v, mask, repeat_kv=cfg.repeat_kv)
+        with span("model.attn.core"):
+            out = gqa_attention(q, k, v, mask, repeat_kv=cfg.repeat_kv)
     out = shard(project("bshk,hkd->bsd", out, p["wo"]), "batch", "act_seq", None)
     if not return_cache:
         return out

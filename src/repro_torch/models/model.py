@@ -16,6 +16,8 @@ Program surface:
   decode_step(cfg, params, cache, batch)       — updates `cache` in place
 The VLM's batches carry "image_embeds" [B, I, d_model] (the stubbed
 vision tower's patch embeddings); codebook models take tokens [B, S, K].
+`prefill` and `forward` mark their sub-blocks with spans
+(`repro_torch.obs.trace.span`; the catalog is in `repro_torch.obs`).
 
 Under an active mesh (`common.meshctx.use_mesh`) every rank runs these
 programs on its rows of the batch: `cfg.moe_impl == "shard_map"` takes the
@@ -42,6 +44,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe_shard_map import moe_block_shard_map
 from repro_torch.models.params import ParamSpec as PS
 from repro_torch.models.params import init_params
+from repro_torch.obs.trace import span
 
 __all__ = [
     "make_specs",
@@ -263,26 +266,30 @@ def _self_layer(cfg: ModelConfig, lp, x, positions, max_cache_len: int = 0,
     out_cache: Dict[str, torch.Tensor] = {}
     h = lyr.rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.arch_type == "ssm":
-        if not return_cache:
-            return (x + ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel),
-                    out_cache, None)
-        out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
-            lp["ssm"], h, cfg, return_cache=True, use_kernel=use_kernel)
-        return x + out, out_cache, None
-    if return_cache:
-        attn_out, (out_cache["k"], out_cache["v"]) = lyr.attn_block(
-            lp["attn"], h, cfg, positions, return_cache=True, max_cache_len=max_cache_len,
-            use_kernel=use_kernel)
-    else:
-        attn_out = lyr.attn_block(lp["attn"], h, cfg, positions, use_kernel=use_kernel)
-    if cfg.hybrid:
-        if return_cache:
-            s_out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
+        with span("model.ssm"):
+            if not return_cache:
+                return (x + ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel),
+                        out_cache, None)
+            out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
                 lp["ssm"], h, cfg, return_cache=True, use_kernel=use_kernel)
+        return x + out, out_cache, None
+    with span("model.attn"):
+        if return_cache:
+            attn_out, (out_cache["k"], out_cache["v"]) = lyr.attn_block(
+                lp["attn"], h, cfg, positions, return_cache=True, max_cache_len=max_cache_len,
+                use_kernel=use_kernel)
         else:
-            s_out = ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel)
+            attn_out = lyr.attn_block(lp["attn"], h, cfg, positions, use_kernel=use_kernel)
+    if cfg.hybrid:
+        with span("model.ssm"):
+            if return_cache:
+                s_out, (out_cache["conv"], out_cache["state"]) = ssm_lib.ssm_block(
+                    lp["ssm"], h, cfg, return_cache=True, use_kernel=use_kernel)
+            else:
+                s_out = ssm_lib.ssm_block(lp["ssm"], h, cfg, use_kernel=use_kernel)
         attn_out = 0.5 * (attn_out + s_out)
-    x, aux = _ffn(cfg, lp, x + attn_out)
+    with span("model.ffn"):
+        x, aux = _ffn(cfg, lp, x + attn_out)
     return x, out_cache, aux
 
 
@@ -325,7 +332,8 @@ def forward(cfg: ModelConfig, params, batch,
     wraps its scan body in `jax.checkpoint`: its activations are
     recomputed in the backward pass instead of kept, and no value changes.
     """
-    x = _embed_tokens(cfg, params, batch)
+    with span("model.embed"):
+        x = _embed_tokens(cfg, params, batch)
     b, s = x.shape[:2]
     positions = _positions(b, s, x.device)
     if cfg.cross_attn_every:
@@ -341,15 +349,18 @@ def forward(cfg: ModelConfig, params, batch,
             x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg, img_k[i], img_v[i],
                                      use_kernel=use_kernel)
             continue
-        lp = _layer(params["layers"], i)
-        if cfg.remat:
-            x, layer_aux = torch.utils.checkpoint.checkpoint(self_layer, lp, x,
-                                                             use_reentrant=False)
-        else:
-            x, layer_aux = self_layer(lp, x)
+        with span("model.layer", layer=i):
+            lp = _layer(params["layers"], i)
+            if cfg.remat:
+                x, layer_aux = torch.utils.checkpoint.checkpoint(self_layer, lp, x,
+                                                                 use_reentrant=False)
+            else:
+                x, layer_aux = self_layer(lp, x)
         if layer_aux is not None:
             aux = aux + layer_aux
-    return _logits(cfg, params, x), aux
+    with span("model.logits"):
+        logits = _logits(cfg, params, x)
+    return logits, aux
 
 
 def loss_fn(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -413,28 +424,34 @@ def prefill(
     Cache entries are stacked over self layers: [L_self, B, ...]; the VLM's
     `img_k` / `img_v` over cross layers: [G, B, I, Hkv, hd].
     """
-    x = _embed_tokens(cfg, params, batch)
-    b, s = x.shape[:2]
-    max_cache_len = max_cache_len or (s + 1)
-    positions = _positions(b, s, x.device)
-    cache: Dict[str, torch.Tensor] = {}
-    if cfg.cross_attn_every:
-        cache["img_k"], cache["img_v"] = _cross_kv_all(
-            cfg, params, batch["image_embeds"].to(x.dtype))
-    per_layer: Dict[str, list] = {}
-    for kind, i in _stack_order(cfg):
-        if kind == "cross":
-            x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg,
-                                     cache["img_k"][i], cache["img_v"][i],
-                                     use_kernel=use_kernel)
-            continue
-        x, entries, _ = _self_layer(cfg, _layer(params["layers"], i), x, positions,
-                                    max_cache_len=max_cache_len, return_cache=True,
-                                    use_kernel=use_kernel)
-        for k, v in entries.items():
-            per_layer.setdefault(k, []).append(v)
-    cache.update({k: torch.stack(v) for k, v in per_layer.items()})
-    return _logits(cfg, params, x[:, -1:]), cache
+    shape = batch["tokens"].shape
+    with span("model.prefill", tokens=shape[0] * shape[1]):
+        with span("model.embed"):
+            x = _embed_tokens(cfg, params, batch)
+        b, s = x.shape[:2]
+        max_cache_len = max_cache_len or (s + 1)
+        positions = _positions(b, s, x.device)
+        cache: Dict[str, torch.Tensor] = {}
+        if cfg.cross_attn_every:
+            cache["img_k"], cache["img_v"] = _cross_kv_all(
+                cfg, params, batch["image_embeds"].to(x.dtype))
+        per_layer: Dict[str, list] = {}
+        for kind, i in _stack_order(cfg):
+            if kind == "cross":
+                x = lyr.cross_attn_block(_layer(params["cross"], i), x, cfg,
+                                         cache["img_k"][i], cache["img_v"][i],
+                                         use_kernel=use_kernel)
+                continue
+            with span("model.layer", layer=i):
+                x, entries, _ = _self_layer(cfg, _layer(params["layers"], i), x, positions,
+                                            max_cache_len=max_cache_len, return_cache=True,
+                                            use_kernel=use_kernel)
+            for k, v in entries.items():
+                per_layer.setdefault(k, []).append(v)
+        cache.update({k: torch.stack(v) for k, v in per_layer.items()})
+        with span("model.logits"):
+            logits = _logits(cfg, params, x[:, -1:])
+    return logits, cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, batch,

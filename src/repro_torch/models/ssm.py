@@ -25,6 +25,7 @@ from repro_torch.common.sharding import DTensor, Replicate, blockwise, project, 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rms_norm
+from repro_torch.obs.trace import span
 
 __all__ = ["ssd_chunked", "ssm_block", "ssm_decode", "xbc_raw_tail"]
 
@@ -212,10 +213,11 @@ def ssm_block(
         c_p = F.pad(c_mat, (0, 0, 0, 0, 0, pad))
         dt_p = F.pad(dt, (0, 0, 0, pad))
 
-    y, final_state = blockwise(
-        lambda *a: _scan(*a, cfg, use_kernel), (xs_p, dt_p, p["a_log"], b_p, c_p),
-        (_HEADS, ("batch", None, "ssm_heads"), ("ssm_heads",), _ROWS, _ROWS),
-        (_HEADS, ("batch", "ssm_heads", None, None)))
+    with span("model.ssm.scan"):
+        y, final_state = blockwise(
+            lambda *a: _scan(*a, cfg, use_kernel), (xs_p, dt_p, p["a_log"], b_p, c_p),
+            (_HEADS, ("batch", None, "ssm_heads"), ("ssm_heads",), _ROWS, _ROWS),
+            (_HEADS, ("batch", "ssm_heads", None, None)))
     if pad:
         y = y[:, :s]
     y = y + xs * p["d_skip"][None, None, :, None]

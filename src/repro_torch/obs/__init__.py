@@ -7,7 +7,8 @@ and event kinds (catalog below):
   gauges and preallocated log-spaced-bucket histograms (O(1) record,
   bounded memory); Prometheus text exposition + JSON snapshot.
 * `repro_torch.obs.trace` — seeded ~1-in-N sampled `RouteTracer`: per-batch
-  phase spans stamped with versions, JSONL export.
+  phase spans stamped with versions, JSONL export; and the program's spans
+  (`span`, `recording`; catalog below), off unless a recording is open.
 * `repro_torch.obs.events` — bounded `EventBus` the control and index
   planes publish lifecycle transitions into.
 * `repro_torch.obs.quality` — `QualityMonitor`: rolling NDCG@5/Recall@5 on
@@ -102,6 +103,41 @@ jit_cache_size{fn=} (gauge)
     Absolute `_cache_size()` per hot-path entry (warmup included).
 flightrec_dumps_total / flightrec_suppressed_total (counter)
     Black-box dumps written vs suppressed by the debounce window.
+
+Span catalog (name / parent / attributes — read by)
+===================================================
+
+Recorded only inside `recording()`; stamps on the profiler's wall clock.
+`portbench/span_breakdown.py` labels each idle gap of a traced segment by
+the innermost span open when it began, and reads the host and idle ms
+below; nothing else reads a span yet.
+
+model.prefill / - / tokens — prefill_host_ms (mean ms), prefill_idle_ms
+    (the device's idle ms inside it); `models/model.py::prefill`.
+model.embed / model.prefill or train.forward - the token embedding.
+model.layer / model.prefill or train.forward / layer — one self layer;
+    its ln1, residual adds and a hybrid layer's average fall here.
+model.attn / model.layer - `attn_block`: projections, RoPE, heads-major
+    copies, the padded or rolled decode cache.
+model.attn.core / model.attn - the attention proper: the flash kernel's
+    launch on the card, `gqa_attention` where the plain path runs.
+model.ssm / model.layer - `ssm_block`: in_proj, conv, gates, out_proj.
+model.ssm.scan / model.ssm - the SSD scan (`ssd_scan`'s launches, or
+    the plain chunked scan).
+model.ffn / model.layer - ln2 and the MLP or MoE.
+model.logits / model.prefill or train.forward - ln_f and the head.
+train.step / - / tokens — step_host_ms (mean ms);
+    `training/train_step.py::make_train_step`'s step.
+train.forward, train.backward, train.clip, train.update / train.step - the
+    loss (`loss_fn`), autograd's gradients, `clip_by_global_norm`, the
+    optimizer's update and the new leaves; train.grad_mean / train.step -
+    the data-parallel mean, only with `mean`.
+route.batch / - / queries — the program-side counterpart of the
+    benchmark's route_ms.agent (which times the call from outside);
+    `router/gateway.py::route_batch`, from the stamps its phases take.
+route.embed, route.cache, route.adapter, route.score, route.rerank,
+route.assemble / route.batch - each phase as `route_phase_ms{phase}`
+    records it (the same stamps; a span only where the phase ran).
 
 Event catalog (kind / plane / required detail stamps)
 =====================================================

@@ -14,16 +14,21 @@ Three clocks, three jobs:
 * ``monotonic()`` — monotonic deadline clock, for timeouts/poll loops;
 * ``wall()`` — wall-clock epoch seconds, ONLY for event timestamps that
   leave the process (outcome events, bus events, trace records).
+
+``perf_ns()`` and ``wall_ns()`` are the first and the last in integer
+nanoseconds, for the program's spans (`repro_torch.obs.trace.span`).
 """
 from __future__ import annotations
 
 import time
 
-__all__ = ["perf", "monotonic", "wall", "duration_ms"]
+__all__ = ["perf", "perf_ns", "monotonic", "wall", "wall_ns", "duration_ms"]
 
 perf = time.perf_counter
+perf_ns = time.perf_counter_ns  # a span's stamps: perf()'s clock, whole nanoseconds
 monotonic = time.monotonic
 wall = time.time
+wall_ns = time.time_ns  # the profiler's epoch: spans are read out on it
 
 
 def duration_ms(t0: float, t1: float | None = None) -> float:

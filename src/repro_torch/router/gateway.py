@@ -32,7 +32,9 @@ version stamps re-checked against the live pair), `tracer=` a
 `repro_torch.obs.events.EventBus` (stage swaps, outcome drops, and the owned
 index manager's rebuilds) and `quality=` a
 `repro_torch.obs.quality.QualityMonitor` fed the raw [Q, D] numpy query block
-for label-free drift.
+for label-free drift. While a `repro_torch.obs.trace.recording()` is open,
+each batch also records a `route.batch` span and its phases' spans, from
+the same stamps the `route_phase_ms` histograms read.
 
 `hot_path_jits()` names what `route_batch` dispatches to, as the
 reference's does: there the jitted programs, here the `topk_sim` kernel's
@@ -56,6 +58,7 @@ from repro_torch.core.features import OutcomeFeaturizer
 from repro_torch.core.retrieval import NEG_INF
 from repro_torch.index import ToolIndexManager
 from repro_torch.obs import clock
+from repro_torch.obs import trace as spans_lib
 from repro_torch.obs.metrics import MetricsRegistry, get_registry
 from repro_torch.router.stages import StageSet
 from repro_torch.router.tooldb import ConflictError, ToolsDatabase
@@ -390,7 +393,7 @@ class SemanticRouter:
         stage_version, stages = self.stage_set()
         obs = self._obs
         tracing = self._tracer is not None and self._tracer.sample()
-        timed = tracing or obs is not None
+        timed = tracing or obs is not None or spans_lib.recording_on()
         q = self._embed_batch(queries)  # [Q, D]
         t_embed = clock.perf() if timed else 0.0
         # cache probe: keys are embedding-space, so it runs
@@ -548,16 +551,21 @@ class SemanticRouter:
             # reached the index, the rerank span only when the Stage-2 MLP
             # actually ran — recording ~0 ms slice-only "reranks" (or
             # all-hit "scores") would poison the p50
-            spans = [("embed", (t_embed - t0) * 1e3)]
+            stamps = [("embed", t0, t_embed)]
             if use_cache:
-                spans.append(("cache", (t_cache - t_embed) * 1e3))
+                stamps.append(("cache", t_embed, t_cache))
             if n_miss:
-                spans.append(("adapter", (t_adapter - t_cache) * 1e3))
-                spans.append(("score", (t_score - t_adapter) * 1e3))
+                stamps.append(("adapter", t_cache, t_adapter))
+                stamps.append(("score", t_adapter, t_score))
                 if rerank:
-                    spans.append(("rerank", (t_rank - t_score) * 1e3))
-            spans.append(("assemble", (t_done - t_rank) * 1e3))
+                    stamps.append(("rerank", t_score, t_rank))
+            stamps.append(("assemble", t_rank, t_done))
+            spans = [(name, (b - a) * 1e3) for name, a, b in stamps]
             total_ms = (t_done - t0) * 1e3
+            if spans_lib.recording_on():
+                spans_lib.record("route.batch", t0, t_done,
+                                 [("route." + name, a, b) for name, a, b in stamps],
+                                 queries=n_q)
             # trace BEFORE metrics: a sampled batch's trace id becomes the
             # exemplar on the duration buckets it lands in, so a p99 reading
             # links straight to a concrete RouteTrace

@@ -19,6 +19,7 @@ import torch
 from repro_torch import optim
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs.trace import span
 from repro_torch.optim.base import tree_leaves
 
 __all__ = ["ADAFACTOR_THRESHOLD", "TrainConfig", "choose_optimizer", "make_train_step"]
@@ -62,27 +63,39 @@ def make_train_step(
     `mean` (data parallelism: `Trainer(mesh=)` passes it) takes a list of
     tensors, this rank's gradients and metrics, and returns their means
     over the data ranks; the step applies it before the clip, so every
-    rank clips and updates the same gradients."""
+    rank clips and updates the same gradients.
+
+    Spans (`repro_torch.obs.trace.span`): `train.step` around the call,
+    and under it `train.forward`, `train.backward`, `train.grad_mean`
+    (with `mean`), `train.clip` and `train.update`."""
     optimizer = choose_optimizer(cfg, tc)
 
     def train_step(params, opt_state, batch):
-        loss, metrics = M.loss_fn(cfg, params, batch)
-        leaves = tree_leaves(params)
-        grads = list(torch.autograd.grad(loss, leaves))
-        if mean is not None:
-            names = sorted(metrics)
-            reduced = mean(grads + [metrics[n].detach() for n in names])
-            grads, metrics = reduced[:len(grads)], dict(zip(names, reduced[len(grads):]))
-        grads = iter(grads)
-        grads = optim.tree_map(lambda _: next(grads), params)
-        with torch.no_grad():
-            grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip)
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = optim.tree_map(lambda p: p.detach(), params)
-            params = optim.apply_updates(params, updates)
-        params = optim.tree_map(lambda p: p.requires_grad_(), params)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = gnorm
+        shape = batch["tokens"].shape
+        with span("train.step", tokens=shape[0] * shape[1]):
+            with span("train.forward"):
+                loss, metrics = M.loss_fn(cfg, params, batch)
+            leaves = tree_leaves(params)
+            with span("train.backward"):
+                grads = list(torch.autograd.grad(loss, leaves))
+            if mean is not None:
+                with span("train.grad_mean"):
+                    names = sorted(metrics)
+                    reduced = mean(grads + [metrics[n].detach() for n in names])
+                    grads, metrics = (reduced[:len(grads)],
+                                      dict(zip(names, reduced[len(grads):])))
+            grads = iter(grads)
+            grads = optim.tree_map(lambda _: next(grads), params)
+            with torch.no_grad(), span("train.clip"):
+                grads, gnorm = optim.clip_by_global_norm(grads, tc.grad_clip)
+            with span("train.update"):
+                with torch.no_grad():
+                    updates, opt_state = optimizer.update(grads, opt_state, params)
+                    params = optim.tree_map(lambda p: p.detach(), params)
+                    params = optim.apply_updates(params, updates)
+                params = optim.tree_map(lambda p: p.requires_grad_(), params)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = gnorm
         return params, opt_state, metrics
 
     return train_step, optimizer
