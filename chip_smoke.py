@@ -31,7 +31,14 @@ package `repro`. Phases, each of which fails the run by raising:
                kernels against the same model with the plain versions; the
                launcher's shapes too: topk_sim at batch 16 over 100,000
                and 199 tools, flash at hymba-1.5b's and qwen2.5-3b's
-               32-token prefill, the scan at hymba-1.5b's.
+               32-token prefill, the scan at hymba-1.5b's; rope_heads
+               (RoPE of q and k, q, k and v heads-major, one launch) at
+               granite-3-8b's and hymba-1.5b's layer-0 prefill shapes at
+               512, 2,048 and 4,096 tokens, every element equal to its
+               plain version's, with its device time, the plain version's
+               and its bound by bytes; and in qwen2.5-3b (2 layers, full
+               width) with its q/k/v biases drawn, every prefill call
+               equal to its plain version at the model's own inputs.
                The flash kernel and its plain version are also measured
                against float64 at the init's own attention scale, which
                the pool rescales (no tolerance: a record of why);
@@ -51,8 +58,9 @@ package `repro`. Phases, each of which fails the run by raising:
                request must get 16 tokens in the vocabulary from finite
                logits, its tools must equal the dense backend's, and each
                prefill must launch flash_attention once per layer (on the
-               wgmma route, never the fma one) and ssd_scan once per layer
-               and phase, and each routed batch topk_sim once (on the
+               wgmma route, never the fma one), rope_heads once per layer
+               and ssd_scan once per layer and phase, and each routed
+               batch topk_sim once (on the
                cluster route); then
                profile a second short drain for the device's
                busy and idle share, and one 2,048-token prefill alone;
@@ -149,7 +157,8 @@ package `repro`. Phases, each of which fails the run by raising:
                through `ContinuousBatcher` (16 routed requests of
                1,100-2,048 prompt tokens, 16 new, 4 slots; flash once an
                attention layer a prefill and, causal=False, once a cross
-               layer a prefill and a tick, all on wgmma; ssd_scan's three
+               layer a prefill and a tick, all on wgmma; rope_heads once a
+               self-attention layer a prefill; ssd_scan's three
                launches once an SSM layer a prefill; topk_sim once a routed
                batch on cluster; the MoE's share of assignments dropped for
                capacity a prefill and a tick), then each family's
@@ -157,7 +166,9 @@ package `repro`. Phases, each of which fails the run by raising:
                `decode_step`s (8; arctic 4) held against a teacher-forced
                `forward` at tests/test_torch_bf16.py's tolerance (MoE: with
                the capacity at T, where nothing drops; at the config's
-               capacity printed), the flash kernel against its plain
+               capacity printed), each rope_heads call of that prefill
+               (bias, hd 64, 80 and 128) equal to its plain version at the
+               model's own inputs, the flash kernel against its plain
                version at the captured layer-0 self-attention input of the
                prefill and at the VLM's cross-attention inputs of the
                prefill and of a decode step, ssd_scan at mamba2's layer-0
@@ -165,7 +176,8 @@ package `repro`. Phases, each of which fails the run by raising:
                bound; then the launcher in process (musicgen-medium,
                mamba2-2.7b, granite-3-8b and stablelm-3b at full width,
                dbrx-132b, llama-3.2-vision-90b and command-r-plus-104b at
-               --smoke) on the card and the CPU,
+               --smoke) on the card and the CPU, one rope_heads launch an
+               attention layer a request,
                printing the same results; each family's params freed
                before the next;
  13. train   — (run before 7) the kernel ops' repair: a reduced model's
@@ -206,11 +218,13 @@ package `repro`. Phases, each of which fails the run by raising:
                within 1e-5; `Trainer(mesh=)` against one device; the MoE
                block's and its all-reduce's ms; the flash kernel against
                its plain version at both prefills' layer 0 and last layer
-               inputs. (b) Two gloo ranks sharing the card (this script
+               inputs; every rope_heads call of both prefills equal to its
+               plain version at its own inputs. (b) Two gloo ranks sharing the card (this script
                again, `--mesh-worker`), mesh (1, 2): the same checks against
                (a)'s results, dbrx at capacity factor 8 with each rank
                holding only its 8 of 16 experts (cut as they are drawn,
-               its memory printed), the flash check at its own prefills, the
+               its memory printed), the flash and rope_heads checks at its
+               own prefills (each rank's launches counted), the
                refinement
                over uneven row blocks (1,207 + 1,206), two
                data-parallel Trainer steps of full-width hymba-1.5b (2
@@ -731,6 +745,128 @@ def ssd_bound(x, dt, a_log, bm, cm):
     return bound(nbytes, flops, PEAK_F32_FLOP_PER_S)
 
 
+ROPE_ARCHS = ("granite-3-8b", "hymba-1.5b")  # the benchmark cells' models
+ROPE_LENS = (512, CAPTURE_LEN, 4096)  # prompt lengths of the cells' mix
+
+
+def rope_call_check(name, args, got) -> dict:
+    """A rope_heads call's outputs `got` (qh, kh, vh) against
+    `rope_heads_ref` at the call's own inputs `args` (q, k, v, positions,
+    theta): every element equal, as the kernel keeps the plain version's
+    float32 arithmetic and rounds once, at the store, as it does. Returns
+    the check's record; raises on any element off."""
+    from repro_torch.kernels.rope_heads.ref import rope_heads_ref
+
+    want = rope_heads_ref(*args)
+    off = [int((g != w).sum()) for g, w in zip(got, want)]
+    rec = dict(case=name, q=list(args[0].shape), kv=list(args[1].shape),
+               dtype=str(args[0].dtype).replace("torch.", ""), elements_off=off)
+    if any(off) or any(g.shape != w.shape for g, w in zip(got, want)):
+        raise AssertionError(f"rope_heads {name}: elements off the plain version (q, k, v) "
+                             f"{off}, shapes {[list(g.shape) for g in got]}")
+    return rec
+
+
+def rope_heads_rows(dev, card):
+    """rope_heads at ROPE_ARCHS' layer-0 prefill shapes (batch 1, ROPE_LENS
+    tokens, the configurations' heads and hd, bf16 inputs of unit scale from
+    a generator of its own, the prefill's expanded positions): every element
+    equal to `rope_heads_ref`'s (`rope_call_check`), one launch a call; then
+    its device time a launch (profiler), a whole call's CUDA-event ms, its
+    bound by bytes (`rope_heads.kernel.cost`, each element read and written
+    once) and the plain version's ms (rope of q and k, three heads-major
+    copies: what `attn_block` ran before). Raises outside the limits."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
+    from repro_torch.kernels.rope_heads.ref import rope_heads_ref
+
+    gen = torch.Generator(device=dev).manual_seed(32)
+    rows = []
+    for arch in ROPE_ARCHS:
+        cfg = get_config(arch)
+        for s in ROPE_LENS:
+            heads = (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)
+            q, k, v = (torch.randn((1, s, n, cfg.hd), generator=gen, device=dev)
+                       .to(torch.bfloat16) for n in heads)
+            args = (q, k, v, torch.arange(s, device=dev)[None].expand(1, s), cfg.rope_theta)
+            before = rope_kernel.launches
+            got = rope_kernel.rope_heads_cuda(*args)
+            torch.cuda.synchronize()
+            if rope_kernel.launches != before + 1:
+                raise AssertionError(f"rope_heads {arch} S={s}: "
+                                     f"{rope_kernel.launches - before} launches")
+            off = rope_call_check(f"{arch} S={s}", args, got)["elements_off"]
+            work = rope_kernel.cost(1, s, *heads[:2], cfg.hd)
+            bound_ms, bound_by = bound(work["bytes_accessed"], work["flops"],
+                                       PEAK_F32_FLOP_PER_S)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(50):
+                    rope_kernel.rope_heads_cuda(*args)
+                torch.cuda.synchronize()
+            device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                            if "rope_heads_kernel" in e.key) / 1e3 / 50
+            row = dict(model=arch, shape=dict(b=1, s=s, h=heads[0], hkv=heads[1], hd=cfg.hd,
+                                              dtype="bfloat16"),
+                       device_ms=device_ms,
+                       call_ms=cuda_ms(lambda: rope_kernel.rope_heads_cuda(*args), iters=100),
+                       plain_ms=cuda_ms(lambda: rope_heads_ref(*args), iters=20),
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       bound_share=bound_ms / device_ms if device_ms > 0 else None,
+                       elements_off=off)
+            rows.append(row)
+            log(f"time rope_heads {arch} S={s} q/k/v heads {list(heads)} hd {cfg.hd}: device "
+                f"{device_ms:.4f} ms a launch (profiler), a whole call {row['call_ms']:.4f} ms, "
+                f"plain {row['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+                f"elements off the plain version (q, k, v) {off} on {card}")
+    return rows
+
+
+ROPE_BIAS_ARCH, ROPE_BIAS_LAYERS = "qwen2.5-3b", 2  # q/k/v biases, GQA 16/2, hd 128
+
+
+def rope_bias_checks(dev, card):
+    """ROPE_BIAS_ARCH at full width, ROPE_BIAS_LAYERS layers, bf16, its
+    q/k/v biases drawn (the init's are zeros, which would leave the bias
+    add nothing to show): a CAPTURE_LEN-token prefill, one rope_heads
+    launch a layer, each call's outputs equal to its plain version at the
+    model's own inputs (`rope_call_check`). Returns the checks' records;
+    raises on any failed check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
+    from repro_torch.models import model as M
+
+    cfg = dataclasses.replace(get_config(ROPE_BIAS_ARCH), n_layers=ROPE_BIAS_LAYERS,
+                              dtype="bfloat16")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    params = M.attention_at_d_model_fan_in(cfg, init_leaf_by_leaf(cfg, gen, dev))
+    attn = params["layers"]["attn"]
+    for name in ("bq", "bk", "bv"):
+        attn[name] = torch.randn(attn[name].shape, generator=gen, device=dev).to(attn[name].dtype)
+    prompt = torch.randint(0, cfg.vocab_size, (1, CAPTURE_LEN), generator=gen, device=dev)
+    calls, before = [], rope_kernel.launches
+    with torch.no_grad(), recorded_model_calls([], [], rope_calls=calls):
+        M.prefill(cfg, params, {"tokens": prompt})
+    torch.cuda.synchronize()
+    if rope_kernel.launches - before != cfg.n_layers or len(calls) != cfg.n_layers:
+        raise AssertionError(f"rope_heads {ROPE_BIAS_ARCH}: {rope_kernel.launches - before} "
+                             f"launches, {len(calls)} calls over {cfg.n_layers} layers")
+    checks = [rope_call_check(f"{ROPE_BIAS_ARCH} layer {i} prefill, q/k/v biases drawn", *c)
+              for i, c in enumerate(calls)]
+    log(f"kernel check rope_heads {ROPE_BIAS_ARCH} ({cfg.n_layers} layers, full width, q/k/v "
+        f"biases drawn) {CAPTURE_LEN}-token prefill: q{checks[0]['q']} kv{checks[0]['kv']}, "
+        f"elements off the plain version " + json.dumps([c["elements_off"] for c in checks])
+        + f" on {card}")
+    del params, calls
+    return checks
+
+
 def pool_config():
     """The pool's model: hymba-1.5b at full width and depth, in its bf16."""
     from repro_torch.configs import get_config
@@ -778,19 +914,21 @@ def capture_prefill(cfg, params, tokens, wanted):
 def plain_kernels():
     """The model's layers call the kernels' plain versions inside the block."""
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rope_heads import ops as rope_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.models import layers, ssm
 
     def plain(fn):  # the layers pass use_kernel=None themselves: override it
         return lambda *args, **kwargs: fn(*args, **{**kwargs, "use_kernel": False})
 
-    originals = layers.flash_attention, ssm.ssd_ops
+    originals = layers.flash_attention, layers.rope_heads, ssm.ssd_ops
     layers.flash_attention = plain(flash_ops.flash_attention)
+    layers.rope_heads = plain(rope_ops.rope_heads)
     ssm.ssd_ops = types.SimpleNamespace(ssd_scan=plain(ssd_ops.ssd_scan))
     try:
         yield
     finally:
-        layers.flash_attention, ssm.ssd_ops = originals
+        layers.flash_attention, layers.rope_heads, ssm.ssd_ops = originals
 
 
 def timed_on_card(fn, into):
@@ -1774,12 +1912,14 @@ def launch_phase(dev, card, ever_launched, first_launch_ms):
 
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.nvcc import LIBRARIES
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
     from repro_torch.launch import serve
     from repro_torch.obs import list_dumps
 
-    modules = {"topk_sim": topk_kernel, "flash_attention": flash_kernel, "ssd_scan": ssd_kernel}
+    modules = {"topk_sim": topk_kernel, "flash_attention": flash_kernel, "ssd_scan": ssd_kernel,
+               "rope_heads": rope_kernel}
     builds = sum(lib.builds for lib in LIBRARIES.values())
     out = dict(runs={}, launches=dict.fromkeys(modules, 0),
                topk_routes=dict.fromkeys(topk_kernel.ROUTES, 0),
@@ -1829,6 +1969,7 @@ def launch_phase(dev, card, ever_launched, first_launch_ms):
                                         "--smoke" in LAUNCH_CARD_ARGS)
                 n_req = sum(len(b[2]) for b in run["rec"]["batches"])
                 want = {"flash_attention": n_req * cfg.n_layers,
+                        "rope_heads": n_req * cfg.n_layers,
                         "ssd_scan": n_req * cfg.n_layers * len(ssd_kernel.PHASES)
                         if cfg.has_ssm else 0,
                         "topk_sim": sum(sum(c["launched"].values()) for c in run["rec"]["topk"])}
@@ -2140,15 +2281,18 @@ def recorded_routes(into):
 
 
 @contextlib.contextmanager
-def recorded_model_calls(flash_calls, moe_inputs, ssd_calls=None):
+def recorded_model_calls(flash_calls, moe_inputs, ssd_calls=None, rope_calls=None):
     """Inside the block every flash_attention call of the model's layers
     appends ((q, k, v), kwargs) to `flash_calls`, every moe_block call
-    (p, x) to `moe_inputs` and, given `ssd_calls`, every ssd_scan call
-    ((x, dt, a_log, b, c, chunk), kwargs) to it (references, no copies:
-    none is written after the call)."""
+    (p, x) to `moe_inputs`, given `ssd_calls`, every ssd_scan call
+    ((x, dt, a_log, b, c, chunk), kwargs) to it and, given `rope_calls`,
+    every rope_heads call ((q, k, v, positions, theta), (qh, kh, vh)) to it
+    (references, no copies: none is written after the call; a decode
+    cache may view kh and vh, so check them before the first decode step)."""
     from repro_torch.models import layers, ssm
 
     flash, moe, ssd = layers.flash_attention, layers.moe_block, ssm.ssd_ops.ssd_scan
+    rope = layers.rope_heads
 
     def flash_wrapper(q, k, v, **kw):
         # the kernel's arguments: the op's use_kernel is not one
@@ -2163,14 +2307,22 @@ def recorded_model_calls(flash_calls, moe_inputs, ssd_calls=None):
         ssd_calls.append((args, {n: x for n, x in kw.items() if n != "use_kernel"}))
         return ssd(*args, **kw)
 
+    def rope_wrapper(q, k, v, positions, theta, **kw):
+        out = rope(q, k, v, positions, theta, **kw)
+        rope_calls.append(((q, k, v, positions, theta), out))
+        return out
+
     layers.flash_attention, layers.moe_block = flash_wrapper, moe_wrapper
     if ssd_calls is not None:
         ssm.ssd_ops.ssd_scan = ssd_wrapper
+    if rope_calls is not None:
+        layers.rope_heads = rope_wrapper
     try:
         yield
     finally:
         layers.flash_attention, layers.moe_block = flash, moe
         ssm.ssd_ops.ssd_scan = ssd
+        layers.rope_heads = rope
 
 
 def moe_drop_share(moe_inputs):
@@ -2214,10 +2366,12 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
     says): the batcher leg (routed admission), a 2,048-token prompt through
     `M.prefill` and greedy `decode_step`s held against a teacher-forced
     `forward`, the flash kernel and the scan at captured layer-0 inputs
-    against their plain versions and timed, the launcher in process on the
-    card and the CPU, and the cross-attention's causal=False kernel timed.
-    Each family's kernel counts come from its layers: flash once an
-    attention layer (and a cross layer) a prefill, the scan's three
+    against their plain versions and timed, every rope_heads call of that
+    prefill against its plain version at the model's own inputs, the
+    launcher in process on the card and the CPU, and the cross-attention's
+    causal=False kernel timed. Each family's kernel counts come from its
+    layers: flash once an attention layer (and a cross layer) a prefill,
+    rope_heads once a self-attention layer a prefill, the scan's three
     launches once an SSM layer a prefill. Returns the summary; raises on
     any failed check."""
     import dataclasses
@@ -2228,6 +2382,7 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
@@ -2248,25 +2403,26 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
         return n_self if c.has_attention else 0, n_cross, n_self if c.has_ssm else 0
 
     def reset_counts():
-        for mod in (flash_kernel, ssd_kernel, topk_kernel):
+        for mod in (flash_kernel, ssd_kernel, topk_kernel, rope_kernel):
             mod.launches = 0
         flash_kernel.launches_by_route = dict.fromkeys(flash_kernel.ROUTES, 0)
         topk_kernel.launches_by_route = dict.fromkeys(topk_kernel.ROUTES, 0)
 
     def counts():
         return dict(flash=flash_kernel.launches, ssd=ssd_kernel.launches,
-                    topk=topk_kernel.launches,
+                    topk=topk_kernel.launches, rope=rope_kernel.launches,
                     flash_routes=dict(flash_kernel.launches_by_route),
                     topk_routes=dict(topk_kernel.launches_by_route))
 
     # launches of the full-width legs (batcher, direct) and, apart, of the
     # launcher's card runs (two of them at --smoke: float32, the fma route)
-    out = dict(families={}, cross_shapes=[], self_shapes=[], ssd_shapes=[], **{path: dict(
-        launches=dict(flash=0, ssd=0, topk=0), flash_routes=dict.fromkeys(flash_kernel.ROUTES, 0),
+    out = dict(families={}, cross_shapes=[], self_shapes=[], ssd_shapes=[], rope_checks=[],
+               **{path: dict(
+        launches=dict(flash=0, ssd=0, topk=0, rope=0), flash_routes=dict.fromkeys(flash_kernel.ROUTES, 0),
         topk_routes=dict.fromkeys(topk_kernel.ROUTES, 0)) for path in ("pool", "launch")})
 
     def add(path, c):
-        for key in ("flash", "ssd", "topk"):
+        for key in ("flash", "ssd", "topk", "rope"):
             out[path]["launches"][key] += c[key]
         for key in ("flash_routes", "topk_routes"):
             for r, n in c[key].items():
@@ -2370,7 +2526,8 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
                                          f"generated {r.generated}")
             ticks = len(decode_ms)
             want = dict(flash=FAMILY_REQUESTS * (n_attn + n_cross) + ticks * n_cross,
-                        ssd=FAMILY_REQUESTS * n_ssm * n_phases, topk=len(routed))
+                        ssd=FAMILY_REQUESTS * n_ssm * n_phases, topk=len(routed),
+                        rope=FAMILY_REQUESTS * n_attn)
             want_flash = {"wgmma": want["flash"], "fma": 0}
             want_topk = dict.fromkeys(topk_kernel.ROUTES, 0) | {"cluster": len(routed)}
             if ({k: c[k] for k in want} != want or c["flash_routes"] != want_flash
@@ -2427,12 +2584,14 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
             """prefill + n_decode greedy steps: (logits a step, the tokens
             fed, prefill ms, decode ms, flash calls of prefill and of each
             step, MoE (dropped, assigned) of each, each step's MoE inputs at
-            its last position, a (p, row) a layer, and the prefill's layer-0
-            scan call when recorded)."""
+            its last position, a (p, row) a layer, the prefill's layer-0
+            scan call when recorded, and the checks of the prefill's
+            rope_heads calls against their plain version, made before the
+            first decode step)."""
             batch = {"tokens": prompt}
             if n_cross:
                 batch["image_embeds"] = img
-            flash_calls, moe_inputs, ssd_calls = [], [], []
+            flash_calls, moe_inputs, ssd_calls, rope_calls = [], [], [], []
             steps, fed, ms, calls, drops, moe_rows = [], [], [], [], [], []
             ssd_first = []  # the prefill's layer-0 scan call, when recorded
 
@@ -2446,13 +2605,17 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
                 moe_rows.append([(p_, x_[:, -1].clone()) for p_, x_, _ in moe_inputs])
                 drops.append(moe_drop_share(moe_inputs))
 
-            with recorded_model_calls(flash_calls, moe_inputs, ssd_calls):
+            with recorded_model_calls(flash_calls, moe_inputs, ssd_calls, rope_calls):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 logits, cache = M.prefill(run_cfg, run_params, batch,
                                           max_cache_len=CAPTURE_LEN + n_decode + 1)
                 torch.cuda.synchronize()
                 ms.append((time.perf_counter() - t) * 1e3)
+                rope_checks = [rope_call_check(f"{arch} layer {i} prefill ({run_cfg.dtype}, "
+                                               f"capacity {run_cfg.capacity_factor})", *call)
+                               for i, call in enumerate(rope_calls)]
+                rope_calls.clear()
                 steps.append(logits[:, -1])
                 close_step(record)
                 for step in range(n_decode):
@@ -2470,6 +2633,11 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
             for s_ in steps:
                 if not bool(torch.isfinite(s_).all()):
                     raise AssertionError(f"families {arch}: non-finite logits")
+            if len(rope_checks) != n_attn or rope_calls:
+                raise AssertionError(f"families {arch}: {len(rope_checks)} rope_heads calls in "
+                                     f"the prefill, {len(rope_calls)} in the decode steps; "
+                                     f"expected {n_attn} and 0")
+            out["rope_checks"].extend(rope_checks)
             return steps, fed, ms, calls, drops, moe_rows, ssd_first
 
         def experts(p_, rows, run_cfg):
@@ -2511,7 +2679,7 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
         prefill_flags = [kw["causal"] for _, kw in calls[0]]
         if (prefill_flags != [f for g in want_calls for f in g]
                 or [[kw["causal"] for _, kw in calls[1]]] + calls[2:] != [[False] * n_cross] * n_decode
-                or c["flash"] != n_attn + n_cross * (1 + n_decode)
+                or c["flash"] != n_attn + n_cross * (1 + n_decode) or c["rope"] != n_attn
                 or c["ssd"] != n_ssm * n_phases or c["topk"]
                 or c["flash_routes"] != {"wgmma": c["flash"], "fma": 0}):
             raise AssertionError(f"families {arch}: direct leg launches {c}, prefill flags "
@@ -2522,7 +2690,7 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
                              decode_ms=ms[1:], decode_ms_p50=float(np.median(ms[1:])),
                              tokens_per_s=1e3 / float(np.median(ms[1:])),
                              launches=c["flash"], ssd_launches=c["ssd"],
-                             teacher_forced_max_abs=errs)
+                             rope_launches=c["rope"], teacher_forced_max_abs=errs)
         if cfg.arch_type == "moe":
             # capacity depends on T, so a forward over 2,048 + n tokens drops
             # other assignments than the prefill over 2,048 and the decode
@@ -2567,7 +2735,8 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
             f"{n_decode} decode steps p50 {d['decode_ms_p50']:.1f} ms "
             f"({d['tokens_per_s']:.1f} tokens/s at batch 1); flash launches "
             f"{c['flash']} ({n_attn} causal + {n_cross} causal=False in the prefill, "
-            f"{n_cross} causal=False a step; all wgmma), ssd_scan launches {c['ssd']} "
+            f"{n_cross} causal=False a step; all wgmma), rope_heads launches {c['rope']} "
+            f"(each call's outputs equal to its plain version's), ssd_scan launches {c['ssd']} "
             f"({n_phases} an SSM layer in the prefill); logits within 3e-2 + 2 bf16 ulps of "
             f"the row max of a teacher-forced forward, max|d| a step "
             + json.dumps([round(e, 4) for e in held])
@@ -2692,6 +2861,7 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
             n_new = int(FAMILY_LAUNCH[FAMILY_LAUNCH.index("--max-new-tokens") + 1])
             want = n_req * (l_attn + l_cross) + n_req * (n_new - 1) * l_cross
             want_ssd = n_req * l_ssm * n_phases
+            want_rope = n_req * l_attn
             for call in card_run["rec"]["flash"]:
                 if call["launched"] != {call["want"]: 1}:
                     raise AssertionError(f"launch ({arch}): flash call {call['shape']} "
@@ -2700,19 +2870,20 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
                 if call["launched"] != {"all": n_phases}:
                     raise AssertionError(f"launch ({arch}): ssd_scan call {call['shape']} "
                                          f"launched {call['launched']}")
-            if (c["flash"] != want or c["ssd"] != want_ssd or not c["topk"]
+            if (c["flash"] != want or c["ssd"] != want_ssd or c["rope"] != want_rope
+                    or not c["topk"]
                     or c["topk"] != sum(sum(x["launched"].values())
                                         for x in card_run["rec"]["topk"])
                     or len(card_run["prefill_ms"]) != n_req):
                 raise AssertionError(f"launch ({arch}): launches {c}, expected {want} flash, "
-                                     f"{want_ssd} ssd_scan")
+                                     f"{want_ssd} ssd_scan, {want_rope} rope_heads")
             add("launch", c)
             n_rule, _ = launch_parity(arch, card_run, runs["cpu"], n_req)
             p = card_run["printed"]
             rec["launch"] = dict(argv=card_run["argv"], seconds=card_run["seconds"],
                                  cpu_seconds=runs["cpu"]["seconds"], r5=p["r5"],
                                  near_tie_rows=n_rule, launches=c["flash"],
-                                 ssd_launches=c["ssd"],
+                                 ssd_launches=c["ssd"], rope_launches=c["rope"],
                                  flash_routes=c["flash_routes"], topk_routes=c["topk_routes"],
                                  prefill_ms_p50=float(np.median(card_run["prefill_ms"])),
                                  decode_ms_p50=float(np.median(card_run["decode_ms"])))
@@ -2720,8 +2891,8 @@ def families_phase(dev, card, gen, check_flash, check_ssd, make_router, db_nativ
                 f"process ({runs['cpu']['seconds']:.1f} s on the CPU at --smoke); {n_req} "
                 f"requests, R@5 {p['r5']:.3f}, prefill ms p50 {rec['launch']['prefill_ms_p50']:.2f}, "
                 f"decode ms a token p50 {rec['launch']['decode_ms_p50']:.2f}; flash launches "
-                f"{c['flash']} by route " + json.dumps(c["flash_routes"]) + f", ssd_scan "
-                f"launches {c['ssd']}, topk_sim by route "
+                f"{c['flash']} by route " + json.dumps(c["flash_routes"]) + f", rope_heads "
+                f"launches {c['rope']}, ssd_scan launches {c['ssd']}, topk_sim by route "
                 + json.dumps(c["topk_routes"]) + f"; printed results equal to the CPU run's "
                 f"(near-tie rows {n_rule}) on {card}")
             del runs, card_run
@@ -3494,6 +3665,16 @@ def _prefill_flash_calls(calls, cfg, prompt_len, what):
     return [(f"mesh {what} layer {i}", *pre[i]) for i in (0, cfg.n_layers - 1)]
 
 
+def _prefill_rope_checks(calls, cfg, prompt_len, what):
+    """`rope_call_check` of each rope_heads call `recorded_model_calls`
+    recorded over a prefill of `prompt_len` tokens: one an attention layer,
+    the mesh path's own inputs and outputs."""
+    if len(calls) != cfg.n_layers or any(c[0][0].shape[1] != prompt_len for c in calls):
+        raise AssertionError(f"mesh: {what} recorded {len(calls)} rope_heads calls, not "
+                             f"{cfg.n_layers} over {prompt_len} tokens")
+    return [rope_call_check(f"mesh {what} layer {i}", *c) for i, c in enumerate(calls)]
+
+
 def _bytes(tree) -> int:
     return sum(v.numel() * v.element_size() for _, v in _named_leaves(tree))
 
@@ -3588,6 +3769,7 @@ def mesh_phase(dev, card, bench, native, q_all, tmp, backend="nccl"):
         mesh = meshctx.make_mesh((1, 1), ("data", "model"), dev)
         out["world1"] = _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp)
         out["flash_calls"] = out["world1"].pop("flash_calls")
+        out["rope_checks"] = out["world1"].pop("rope_checks")
     finally:
         dist.destroy_process_group()
     gc.collect()
@@ -3625,10 +3807,11 @@ def mesh_phase(dev, card, bench, native, q_all, tmp, backend="nccl"):
                 log(f"{l} on {card}")
     out["gloo"] = results
     out["gloo_seconds"] = time.perf_counter() - t0
-    out["gloo_launches"] = {"flash_attention": sum(r["launches"]["flash_attention"]
-                                                   for r in results.values())}
+    out["gloo_launches"] = {name: sum(r["launches"][name] for r in results.values())
+                            for name in ("flash_attention", "rope_heads")}
     out["gloo_flash_checks"] = [c for r in results.values() for c in r.pop("flash_checks")]
-    log(f"mesh: two gloo ranks on one card in {out['gloo_seconds']:.1f} s, flash launches "
+    out["rope_checks"] += [c for r in results.values() for c in r.pop("rope_checks")]
+    log(f"mesh: two gloo ranks on one card in {out['gloo_seconds']:.1f} s, launches "
         f"{out['gloo_launches']}; gloo took the CUDA tensors of every collective (all_reduce "
         f"SUM and MAX, all_gather): no op staged through the host, on {card}")
     return out
@@ -3664,6 +3847,7 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
     out = {}
     refs = {}
     flash_calls = []  # the mesh path's flash inputs, checked once its launches are read
+    rope_checks = []  # its rope_heads outputs against their plain version
     dbrx, dbrx_b, musicgen = _mesh_families()
     # ---- the MoE: gspmd against shard_map at phase 12's depth
     with torch.no_grad():
@@ -3673,11 +3857,12 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
         # (b)'s reference: the same model at capacity factor 8
         refs["dbrx"] = M.prefill(dbrx_b, params, {"tokens": prompt})[0].cpu()
         sm = dataclasses.replace(dbrx, moe_impl="shard_map")
-        calls = []
-        with meshctx.use_mesh(mesh), recorded_model_calls(calls, []):
+        calls, ropes = [], []
+        with meshctx.use_mesh(mesh), recorded_model_calls(calls, [], rope_calls=ropes):
             got, _ = M.prefill(sm, shard_expert_params(sm, params, mesh), {"tokens": prompt})
         flash_calls += _prefill_flash_calls(calls, dbrx, MESH_PREFILL_LEN, "dbrx shard_map prefill")
-        del calls
+        rope_checks += _prefill_rope_checks(ropes, dbrx, MESH_PREFILL_LEN, "dbrx shard_map prefill")
+        del calls, ropes
         e = _bf16_check(got, ref, "dbrx shard_map prefill")
         p, x = _moe_block_input(dbrx, params, dev)
         with meshctx.use_mesh(mesh):
@@ -3701,12 +3886,16 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
         prompt = _prompt(musicgen, MESH_DECODE_PROMPT, dev, 12)
         base, fed = _decode_run(musicgen, params, prompt, MESH_DECODE_STEPS)
         seq = dataclasses.replace(musicgen, decode_attn="seq_shard")
-        calls = []
-        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, []):
+        calls, ropes = [], []
+        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, [], rope_calls=ropes):
             got, _ = _decode_run(seq, params, prompt, MESH_DECODE_STEPS, tokens=fed, mesh=mesh)
         flash_calls += _prefill_flash_calls(calls, musicgen, MESH_DECODE_PROMPT,
                                             "musicgen-medium prefill")
-        del calls
+        # the prefill's cache is padded to the decode budget (a copy): the
+        # decode steps leave the recorded kh and vh as the prefill wrote them
+        rope_checks += _prefill_rope_checks(ropes, musicgen, MESH_DECODE_PROMPT,
+                                            "musicgen-medium prefill")
+        del calls, ropes
         errs = [_bf16_check(g, b, f"musicgen decode step {i}")
                 for i, (g, b) in enumerate(zip(got, base))]
         out["decode"] = dict(steps=MESH_DECODE_STEPS, prompt=MESH_DECODE_PROMPT,
@@ -3805,6 +3994,7 @@ def _mesh_world_one(dev, card, mesh, bench, native, q_all, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     out["flash_calls"] = flash_calls
+    out["rope_checks"] = rope_checks
     return out
 
 
@@ -3822,6 +4012,7 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
     from repro_torch.common import meshctx, sharding
     from repro_torch.core.refine import refine_embeddings
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
     from repro_torch.models import model as M
     from repro_torch.models.moe_shard_map import init_expert_parallel, moe_block_shard_map
     from repro_torch.optim.base import tree_leaves
@@ -3842,8 +4033,8 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
     mesh = meshctx.make_mesh((1, 2), ("data", "model"), dev)
     _, dbrx_b, musicgen = _mesh_families()
     sm = dataclasses.replace(dbrx_b, moe_impl="shard_map")
-    flash_kernel.launches = 0
-    flash_calls = []
+    flash_kernel.launches = rope_kernel.launches = 0
+    flash_calls, rope_checks = [], []
     with torch.no_grad():
         # (a)'s model, each expert weight cut to this rank's E/2 as it is
         # drawn: the rank never holds all E experts in bf16; the ranks draw
@@ -3863,12 +4054,14 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
                       allocated_bytes=torch.cuda.memory_allocated())
         torch.cuda.reset_peak_memory_stats()
         prompt = _prompt(sm, MESH_PREFILL_LEN, dev, 11)
-        calls = []
-        with meshctx.use_mesh(mesh), recorded_model_calls(calls, []):
+        calls, ropes = [], []
+        with meshctx.use_mesh(mesh), recorded_model_calls(calls, [], rope_calls=ropes):
             got, _ = M.prefill(sm, params, {"tokens": prompt})
         flash_calls += _prefill_flash_calls(calls, sm, MESH_PREFILL_LEN,
                                             f"dbrx shard_map prefill, rank {rank} of 2")
-        del calls
+        rope_checks += _prefill_rope_checks(ropes, sm, MESH_PREFILL_LEN,
+                                            f"dbrx shard_map prefill, rank {rank} of 2")
+        del calls, ropes
         memory["prefill_peak_bytes"] = torch.cuda.max_memory_allocated()
         out["memory"] = memory
         with meshctx.use_mesh(mesh):
@@ -3894,12 +4087,14 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
         prompt = _prompt(musicgen, MESH_DECODE_PROMPT, dev, 12)
         seq = dataclasses.replace(musicgen, decode_attn="seq_shard")
         fed = [f.to(dev) for f in refs["musicgen"]["fed"]]
-        calls = []
-        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, []):
+        calls, ropes = [], []
+        with sharding.set_policy("tp_kvs"), recorded_model_calls(calls, [], rope_calls=ropes):
             got, _ = _decode_run(seq, params, prompt, MESH_DECODE_STEPS, tokens=fed, mesh=mesh)
         flash_calls += _prefill_flash_calls(calls, musicgen, MESH_DECODE_PROMPT,
                                             f"musicgen-medium prefill, rank {rank} of 2")
-        del calls
+        rope_checks += _prefill_rope_checks(ropes, musicgen, MESH_DECODE_PROMPT,
+                                            f"musicgen-medium prefill, rank {rank} of 2")
+        del calls, ropes
         errs = [_bf16_check(g, b.to(dev), f"musicgen decode step {i} on 2 ranks")
                 for i, (g, b) in enumerate(zip(got, refs["musicgen"]["logits"]))]
         out["decode"] = dict(max_abs_err=max(x["max_abs_err"] for x in errs))
@@ -3919,6 +4114,8 @@ def mesh_worker(rank: int, port: int, tmp: str) -> int:
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"]["flash_attention"] = flash_kernel.launches
+    out["launches"]["rope_heads"] = rope_kernel.launches
+    out["rope_checks"] = rope_checks
     if not flash_kernel.launches:
         raise AssertionError("mesh: a gloo rank launched no flash kernel")
     # the kernel at this rank's prefill inputs against its plain version
@@ -4364,6 +4561,7 @@ def main() -> int:
     from repro_torch.embedding.bag_encoder import BagEncoder
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.flash_attention.ref import attention_mask, attention_ref
+    from repro_torch.kernels.rope_heads import kernel as rope_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.topk_sim import kernel as topk_kernel
@@ -4396,7 +4594,7 @@ def main() -> int:
 
     # ----------------------------------------------------------------- 2. build
     kernel_modules = {"topk_sim": topk_kernel, "flash_attention": flash_kernel,
-                      "ssd_scan": ssd_kernel}
+                      "ssd_scan": ssd_kernel, "rope_heads": rope_kernel}
     t_build = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernel_modules)) as pool:
         # one nvcc per source, all running together; a failed build raises here
@@ -4696,6 +4894,9 @@ def main() -> int:
                         dtype=torch.bfloat16) for _ in range(2)))
     qwen_kw = dict(causal=True, window=qwen_cfg.sliding_window, q_offset=0)
     check_flash("qwen2.5-3b launcher prefill", *qwen_qkv, **qwen_kw)
+    # rope_heads at the benchmark cells' layer-0 prefill shapes: checked and timed
+    rope_rows = rope_heads_rows(dev, card)
+    rope_bias = rope_bias_checks(dev, card)
 
     # the whole model, reduced, with the kernels against the plain versions
     small = reduced(pool_cfg, n_kv_heads=2, sliding_window=16)
@@ -4964,11 +5165,12 @@ def main() -> int:
         if len(r.generated) != POOL_NEW_TOKENS or not all(
                 0 <= t < pool_cfg.vocab_size for t in r.generated):
             raise AssertionError(f"pool: request {r.request_id} generated {r.generated}")
-    # one launch per layer and prefill for flash, one per phase for the
-    # scan, one per routed batch for topk_sim (2,413 tools: the cluster route)
+    # one launch per layer and prefill for flash and rope_heads, one per phase
+    # for the scan, one per routed batch for topk_sim (2,413 tools: the
+    # cluster route)
     expect = {"flash_attention": POOL_REQUESTS * pool_cfg.n_layers,
               "ssd_scan": POOL_REQUESTS * pool_cfg.n_layers * len(ssd_kernel.PHASES),
-              "topk_sim": len(routed)}
+              "topk_sim": len(routed), "rope_heads": POOL_REQUESTS * pool_cfg.n_layers}
     expect_routes = {"wgmma": POOL_REQUESTS * pool_cfg.n_layers, "fma": 0}
     expect_topk = {"cluster": len(routed), "split": 0, "wgmma": 0, "select": 0}
     if (pool_launches != expect or pool_flash_routes != expect_routes
@@ -5344,6 +5546,11 @@ def main() -> int:
     log("mesh: flash checks on the gloo ranks: " + json.dumps(
         [{k: c[k] for k in ("case", "max_abs_err", "atol", "rel_norm")}
          for c in mesh["gloo_flash_checks"]]))
+    # rope_heads: each recorded prefill call's outputs, on world size 1 and
+    # on each gloo rank, were held to their plain version where they ran
+    log(f"mesh: rope_heads outputs equal to their plain version's in all "
+        f"{len(mesh['rope_checks'])} calls of the recorded prefills (world size 1 and both "
+        f"gloo ranks: dbrx-132b shard_map, musicgen-medium seq_shard)")
 
     # -------------------------------------------------------------- 16. dryrun
     # the dry-run's predictions against the card; no kernel may launch
@@ -5697,6 +5904,12 @@ def main() -> int:
         f"(a whole call {row['call_ms']:.4f}), plain {row['plain_ms']:.4f}, bound {lb_ms:.4f} "
         f"({lb_by}) on {card}")
 
+    # rope_heads outputs held equal to their plain version's: the cells' shapes
+    # and a model with q/k/v biases (phase 3), every prefill call of phase
+    # 12's direct legs, phase 15's recorded prefills
+    rope_checks = ([dict(case=f"{r['model']} S={r['shape']['s']}", elements_off=r["elements_off"])
+                    for r in rope_rows] + rope_bias + families.pop("rope_checks")
+                   + mesh.pop("rope_checks"))
     kernels = [dict(
         name="topk_sim", route="cuda", source="src/repro_torch/kernels/csrc/topk_sim.cu",
         replaces="src/repro/kernels/topk_sim/kernel.py:89",
@@ -5799,6 +6012,27 @@ def main() -> int:
         tile=ssd_kernel.TILE, call_ms=s_call_ms, device_ms=s_device_ms,
         device_ms_by_phase=s_phase_ms, launch_shapes=launch_times["ssd_scan"],
         family_shapes=families["ssd_shapes"], checks=ssd_checks,
+    ), dict(
+        name="rope_heads", route="cuda", source="src/repro_torch/kernels/csrc/rope_heads.cu",
+        replaces=None, why="no TPU kernel: RoPE and the heads-major copies of prefill's "
+                           "attention block in one launch (XLA fuses them in the JAX package)",
+        launches=(pool_launches["rope_heads"] + launch["launches"]["rope_heads"]
+                  + families["pool"]["launches"]["rope"]
+                  + families["launch"]["launches"]["rope"]
+                  + mesh["launches"]["rope_heads"] + mesh["gloo_launches"]["rope_heads"]),
+        launches_by_path={"pool": pool_launches["rope_heads"],
+                          "launch": launch["launches"]["rope_heads"],
+                          "families": families["pool"]["launches"]["rope"],
+                          "families_launch": families["launch"]["launches"]["rope"],
+                          "train": train["launches"]["rope_heads"],
+                          "runtime": runtime["launches"]["rope_heads"],
+                          "mesh": mesh["launches"]["rope_heads"],
+                          "mesh_gloo": mesh["gloo_launches"]["rope_heads"],
+                          "dryrun": dryrun["launches"]["rope_heads"],
+                          "lint": lint["launches"]["rope_heads"]},
+        checked_calls=len(rope_checks),
+        elements_off=[sum(c["elements_off"][i] for c in rope_checks) for i in range(3)],
+        shapes=rope_rows,
     )]
     summary = dict(card=card, seconds=time.perf_counter() - t_start, runs=runs,
                    profiled=[{k: v for k, v in p.items() if k != "per_kernel_ms"}

@@ -6,6 +6,9 @@
                     `repro/kernels/flash_attention/kernel.py::flash_attention_pallas`)
   ssd_scan        — the Mamba-2 SSD chunk scan (replaces
                     `repro/kernels/ssd_scan/kernel.py::ssd_scan_pallas`)
+  rope_heads      — RoPE on q and k and the heads-major layout of q, k
+                    and v for flash, in one launch (replaces no TPU
+                    kernel: XLA fuses this work in the JAX package)
 
 Each subpackage ships kernel.py (the CUDA build, binding and launch
 wrapper), ref.py (the plain PyTorch version) and ops.py (the public op:
@@ -14,9 +17,9 @@ sources live in `csrc/` and are compiled with nvcc at first use.
 
 No kernel has a backward, as no Pallas kernel of the JAX package has one:
 a kernel's output comes out of a ctypes call and carries no `grad_fn`.
-`no_backward_check` makes the ops of flash_attention and ssd_scan raise
-on their kernel path when an input requires grad, so a gradient is never
-lost without an error; training takes the plain versions.
+`no_backward_check` makes the ops of flash_attention, ssd_scan and
+rope_heads raise on their kernel path when an input requires grad, so a
+gradient is never lost without an error; training takes the plain versions.
 """
 from __future__ import annotations
 

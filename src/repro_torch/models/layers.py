@@ -11,9 +11,10 @@ under one (the dry-run, `launch/dryrun.py`); under a mesh, `attn_decode`
 hands seq-sharded decode to `decode_shard_map`.
 
 Attention has two paths. The kernel path (`use_kernel=True`, or None on
-the card) hands heads-major copies to
-`kernels.flash_attention.ops.flash_attention`, the hand-written kernel,
-which computes what `gqa_attention` computes under the same mask. The
+the card) ropes q and k and lays q, k and v out heads-major in one
+`kernels.rope_heads.ops.rope_heads` kernel call and hands them to `kernels.flash_attention.ops.flash_attention`, the hand-written
+kernel, which computes what `gqa_attention` computes under the same mask.
+`rope` itself is the plain version's, `kernels.rope_heads.ref.rope`. The
 plain path (`use_kernel=False`, or None on the CPU) is the reference's:
 `gqa_attention` on [B, S, H, hd] under the kernel's own `attention_mask` (the cross layer's
 all-ones mask), which keeps the batch and heads dimensions apart, as a
@@ -34,10 +35,13 @@ import torch.nn.functional as F
 from repro_torch.common import meshctx
 from repro_torch.common import sharding as shard_lib
 from repro_torch.common.sharding import logical_constraint as shard
-from repro_torch.common.sharding import blockwise, project
+from repro_torch.common.sharding import DTensor, blockwise, project
 from repro_torch.core.retrieval import stable_topk
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_mask
+from repro_torch.kernels.rope_heads.ops import rope_heads
+from repro_torch.kernels.rope_heads.ref import heads_major as _heads_major
+from repro_torch.kernels.rope_heads.ref import rope
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.trace import span
 
@@ -63,18 +67,6 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     x = x.float()
     var = x.square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale.float()).to(dtype)
-
-
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary embedding. x: [B, S, H, hd]; positions: [B, S] absolute."""
-    half = x.shape[-1] // 2
-    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
-    ang = positions[..., None].float() * freqs  # [B, S, half]
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
 
 
 def _repeat_heads(t: torch.Tensor, g: int) -> torch.Tensor:
@@ -118,7 +110,7 @@ def _attend(q, k, v, mask):
     return out.reshape(b, s, h, hd)
 
 
-def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig):
     q = project("bsd,dhk->bshk", x, p["wq"])  # [B,S,H,hd]
     k = project("bsd,dhk->bshk", x, p["wk"])  # [B,S,Hkv,hd]
     v = project("bsd,dhk->bshk", x, p["wv"])
@@ -126,6 +118,10 @@ def _qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
+    return q, k, v
+
+
+def _rope_qkv(q, k, v, cfg: ModelConfig, positions: torch.Tensor):
     q = shard(rope(q, positions, cfg.rope_theta), "batch", None, "heads", None)
     k = shard(rope(k, positions, cfg.rope_theta), "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
@@ -136,13 +132,6 @@ def _kernel_path(use_kernel: Optional[bool], x: torch.Tensor) -> bool:
     """`use_kernel` resolved: None takes the kernel on the card only (the
     kernel op raises for any other device)."""
     return x.device.type == "cuda" if use_kernel is None else bool(use_kernel)
-
-
-def _heads_major(t: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, hd] -> contiguous [B*H, S, hd], the kernel's layout."""
-    b, s, h, hd = t.shape
-    # reshape alone returns a strided view when b == 1
-    return t.permute(0, 2, 1, 3).contiguous().view(b * h, s, hd)
 
 
 def attn_block(
@@ -156,17 +145,30 @@ def attn_block(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence causal attention (train / prefill). `use_kernel`: True
     takes the flash-attention kernel, False the plain `gqa_attention`
-    (training's, which carries gradients), None the kernel on the card."""
+    (training's, which carries gradients), None the kernel on the card.
+
+    On the kernel path one `rope_heads` kernel call ropes q and k and lays
+    q, k and v out heads-major for flash, and the decode cache is built
+    from views of its k and v rows. DTensors (under a mesh) take each op
+    as the plain path does, then the heads-major copies."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, positions)
-    h, hd = q.shape[2], q.shape[3]
-    if _kernel_path(use_kernel, x):
+    q, k, v = _project_qkv(p, x, cfg)
+    h, hkv, hd = q.shape[2], k.shape[2], q.shape[3]
+    kernel = _kernel_path(use_kernel, x)
+    if kernel and not isinstance(q, DTensor):
+        qh, kh, vh = rope_heads(q, k, v, positions, cfg.rope_theta, use_kernel=True)
+        del q
+        k, v = (t.view(b, hkv, s, hd).permute(0, 2, 1, 3) for t in (kh, vh))
+    else:
+        q, k, v = _rope_qkv(q, k, v, cfg, positions)
+        if kernel:
+            qh, kh, vh = _heads_major(q), _heads_major(k), _heads_major(v)
+    if kernel:
         # query row b*H + h reads key/value row (b*H + h) // g = b*Hkv + h // g
-        qh, kh, vh = _heads_major(q), _heads_major(k), _heads_major(v)
         with span("model.attn.core"):
             out = flash_attention(qh, kh, vh, causal=True, window=cfg.sliding_window,
                                   use_kernel=True)
-        del qh, kh, vh  # freed here, as the call's temporaries were
+        del qh, kh, vh  # freed here, as the call's temporaries were (k and v may view them)
         out = out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
     else:
         mask = attention_mask(s, s, True, cfg.sliding_window, 0, x.device)[None]
@@ -211,7 +213,7 @@ def attn_decode(
     w = cache_k.shape[1]
     pos = int(pos)
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
+    q, k, v = _rope_qkv(*_project_qkv(p, x, cfg), cfg, positions)
     if cfg.decode_attn == "seq_shard":
         mesh = meshctx.current_mesh()
         if mesh is not None and "model" in mesh.axis_names:

@@ -117,8 +117,9 @@ model.prefill / - / tokens — prefill_host_ms (mean ms), prefill_idle_ms
 model.embed / model.prefill or train.forward - the token embedding.
 model.layer / model.prefill or train.forward / layer — one self layer;
     its ln1, residual adds and a hybrid layer's average fall here.
-model.attn / model.layer - `attn_block`: projections, RoPE, heads-major
-    copies, the padded or rolled decode cache.
+model.attn / model.layer - `attn_block`: projections, RoPE and the
+    heads-major layout (one `rope_heads` launch on the card), the padded or
+    rolled decode cache.
 model.attn.core / model.attn - the attention proper: the flash kernel's
     launch on the card, `gqa_attention` where the plain path runs.
 model.ssm / model.layer - `ssm_block`: in_proj, conv, gates, out_proj.

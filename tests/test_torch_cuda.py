@@ -22,6 +22,9 @@ from repro_torch.data.benchmarks import scale_tool_corpus
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rope_heads import kernel as rope_kernel
+from repro_torch.kernels.rope_heads.ops import rope_heads
+from repro_torch.kernels.rope_heads.ref import rope_heads_ref
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
@@ -562,6 +565,120 @@ def test_flash_attention_fma_route_takes_bf16(cuda_device, case):
                                atol=3e-2, rtol=0)
 
 
+# ------------------------------------------------------------------ rope heads
+ROPE_SHAPES = [  # b, h, hkv, hd: granite-3-8b's and hymba-1.5b's layer 0
+    (1, 32, 8, 128), (1, 25, 5, 64)]
+
+
+def _rope_inputs(seed, b, s, h, hkv, hd, dtype, device):
+    """q, k, v [B, S, heads, hd] as the projections return them (contiguous,
+    values of a bf16 model's scale) and prefill's expanded positions."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(b, s, n, hd, generator=g).to(device, dtype) for n in (h, hkv, hkv))
+    return q, k, v, torch.arange(s, device=device)[None].expand(b, s)
+
+
+@pytest.mark.parametrize("s", [1, 37, 512, 4096])
+@pytest.mark.parametrize("b,h,hkv,hd", ROPE_SHAPES)
+def test_rope_heads_kernel_matches_plain(cuda_device, b, h, hkv, hd, s):
+    """The kernel against `rope_heads_ref` on the card, bf16, at both cells'
+    layer-0 shapes: every element equal (the kernel keeps the plain
+    version's float32 arithmetic and rounds once, at the store, as it
+    does), one launch a call."""
+    q, k, v, pos = _rope_inputs(s + hd, b, s, h, hkv, hd, torch.bfloat16, cuda_device)
+    before = rope_kernel.launches
+    got = rope_heads(q, k, v, pos, 1e4)
+    torch.cuda.synchronize()
+    assert rope_kernel.launches == before + 1
+    want = rope_heads_ref(q, k, v, pos, 1e4)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16 and g.is_contiguous()
+    off = [int((g != w).sum()) for g, w in zip(got, want)]
+    assert off == [0, 0, 0], f"elements off the plain version (q, k, v): {off}"
+
+
+@pytest.mark.parametrize("case", ["float32", "strided", "offset"])
+def test_rope_heads_kernel_other_inputs(cuda_device, case):
+    """float32 (16 bytes are 4 values), q, k and v as column slices of one
+    fused projection (row strides of its width), positions from offsets
+    that differ a batch row; every element equal to the plain version's."""
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    hd = 64
+    b, s, h, hkv = 2, 300, 8, 2
+    q, k, v, pos = _rope_inputs(7, b, s, h, hkv, hd, dtype, cuda_device)
+    if case == "strided":
+        fused = torch.cat([q, k, v], dim=2)
+        q, k, v = fused[:, :, :h], fused[:, :, h:h + hkv], fused[:, :, h + hkv:]
+        assert not q.is_contiguous()
+    if case == "offset":
+        pos = torch.arange(s, device=cuda_device)[None] + torch.tensor(
+            [[0], [5000]], device=cuda_device)
+    got = rope_kernel.rope_heads_cuda(q, k, v, pos, 5e5)
+    want = rope_heads_ref(q, k, v, pos, 5e5)
+    off = [int((g != w).sum()) for g, w in zip(got, want)]
+    assert off == [0, 0, 0], f"elements off the plain version (q, k, v): {off}"
+
+
+def test_rope_heads_kernel_rejects_what_it_cannot_take(cuda_device):
+    q, k, v, pos = _rope_inputs(0, 1, 16, 4, 2, 64, torch.bfloat16, cuda_device)
+    odd = [t[..., :63] for t in (q, k, v)]
+    hd36 = [t[..., :36] for t in (q, k, v)]  # a half of 18 values: not whole 16-byte units
+    shifted = torch.zeros(q.numel() + 1, dtype=q.dtype, device=cuda_device)[1:].view(q.shape)
+    for bad in (
+        lambda: rope_kernel.rope_heads_cuda(*odd, pos, 1e4),  # odd hd
+        lambda: rope_kernel.rope_heads_cuda(*hd36, pos, 1e4),  # hd 36
+        lambda: rope_kernel.rope_heads_cuda(shifted, k, v, pos, 1e4),  # rows off 16 bytes
+        lambda: rope_kernel.rope_heads_cuda(q.transpose(2, 3), k, v, pos, 1e4),  # last dim
+        lambda: rope_kernel.rope_heads_cuda(q, k[..., ::2], v[..., ::2], pos, 1e4),  # strided hd
+        lambda: rope_kernel.rope_heads_cuda(q.half(), k.half(), v.half(), pos, 1e4),  # dtype
+        lambda: rope_kernel.rope_heads_cuda(q, k.float(), v, pos, 1e4),  # mixed dtypes
+        lambda: rope_kernel.rope_heads_cuda(q, k, v, pos.int(), 1e4),  # int32 positions
+        lambda: rope_kernel.rope_heads_cuda(q, k, v, pos[:, :8], 1e4),  # positions' shape
+        lambda: rope_kernel.rope_heads_cuda(*(torch.zeros(1, 4, 2, 130, device=cuda_device,
+                                                          dtype=torch.bfloat16),) * 3,
+                                            pos[:, :4], 1e4),  # hd above flash's 128
+        lambda: rope_kernel.rope_heads_cuda(q.cpu(), k, v, pos, 1e4),
+    ):
+        with pytest.raises(ValueError):
+            bad()
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "hymba-1.5b"])
+def test_attn_block_kernel_path_equals_plain_on_the_card(cuda_device, arch):
+    """`attn_block` at the configuration's reduced shapes, float32, on its
+    kernel path (rope_heads, flash on the fma route) against its plain path:
+    output and decode cache within the flash tests' float32 2e-5; then one
+    bf16 prefill launches rope_heads once an attention layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, model as M
+    from repro_torch.models.config import reduced
+
+    cfg = reduced(get_config(arch), sliding_window=16 if arch == "hymba-1.5b" else 0)
+    params = M.init(cfg, torch.Generator(cuda_device).manual_seed(0), cuda_device)
+    p = M._layer(params["layers"], 0)["attn"]
+    x = torch.randn(2, 40, cfg.d_model, generator=torch.Generator().manual_seed(1)).to(cuda_device)
+    pos = torch.arange(40, device=cuda_device)[None].expand(2, 40)
+    before = rope_kernel.launches
+    with torch.no_grad():
+        out, cache = layers.attn_block(p, x, cfg, pos, return_cache=True, max_cache_len=48)
+    torch.cuda.synchronize()
+    assert rope_kernel.launches == before + 1
+    want, want_cache = layers.attn_block(p, x, cfg, pos, return_cache=True, max_cache_len=48,
+                                         use_kernel=False)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=0)
+    for got_t, want_t in zip(cache, want_cache):
+        torch.testing.assert_close(got_t, want_t, atol=2e-5, rtol=0)
+    bf16 = reduced(get_config(arch), dtype="bfloat16",
+                   sliding_window=16 if arch == "hymba-1.5b" else 0)
+    bparams = M.init(bf16, torch.Generator(cuda_device).manual_seed(0), cuda_device)
+    toks = torch.randint(0, bf16.vocab_size, (1, 40), device=cuda_device)
+    before = rope_kernel.launches
+    with torch.no_grad():
+        M.prefill(bf16, bparams, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert rope_kernel.launches == before + bf16.n_layers
+
+
 # ----------------------------------------------------------------- ssd scan
 SSD_SHAPES = [  # b, s, h, p, g, n, chunk
     (2, 256, 4, 64, 1, 128, 64),
@@ -1097,9 +1214,9 @@ def test_adapter_card_cpu_gap_at_lr_1e3_is_float_rounding(cuda_device):
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama-3.2-vision-90b", "musicgen-medium"])
 def test_pool_family_with_kernels_equals_plain_on_the_card(cuda_device, arch):
     """Reduced model, float32: prefill + 4 decode steps with the kernels
-    (flash on the fma route; the VLM's cross layers with causal=False in
-    prefill and in every decode step) against the same with the plain
-    versions, every cache entry too."""
+    (rope_heads and flash on the fma route; the VLM's cross layers with
+    causal=False in prefill and in every decode step) against the same with
+    the plain versions, every cache entry too."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers, model as M
     from repro_torch.models.config import reduced
@@ -1130,13 +1247,14 @@ def test_pool_family_with_kernels_equals_plain_on_the_card(cuda_device, arch):
     torch.cuda.synchronize()
     n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
     assert flash_kernel.launches - before == cfg.n_layers + 4 * n_cross
-    plain = layers.flash_attention
+    plain = layers.flash_attention, layers.rope_heads
     # attn_block passes use_kernel=None itself: override it
     layers.flash_attention = lambda *a, **kw: flash_attention(*a, **{**kw, "use_kernel": False})
+    layers.rope_heads = lambda *a, **kw: rope_heads(*a, **{**kw, "use_kernel": False})
     try:
         with_plain = run()
     finally:
-        layers.flash_attention = plain
+        layers.flash_attention, layers.rope_heads = plain
     for a, b in zip(with_kernels, with_plain):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-3)
@@ -1174,7 +1292,8 @@ def test_forward_with_grad_requiring_params_raises_on_the_card(cuda_device):
                       M.init(cfg, torch.Generator().manual_seed(0), "cpu"))
     batch = {"tokens": torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))).to(cuda_device)}
-    with pytest.raises(ValueError, match="flash_attention: the kernel has no backward"):
+    # the attention block's first kernel op refuses first
+    with pytest.raises(ValueError, match="rope_heads: the kernel has no backward"):
         M.forward(cfg, params, batch)
     before = flash_kernel.launches, ssd_kernel.launches
     with torch.no_grad():

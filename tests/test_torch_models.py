@@ -161,12 +161,13 @@ def test_prefill_and_decode_match_jax(pairs, case):
 
 
 def test_prefill_runs_each_kernel_once_per_layer(pairs, monkeypatch):
-    """What chip_smoke counts on the card: one flash_attention and one
-    ssd_scan call per hybrid layer of a prefill; on the VLM one causal
-    flash call per self layer and one with causal=False per cross layer,
-    in the stack's order, and in each decode step the cross layers' alone."""
-    calls = {"flash": [], "ssd": 0}
-    flash, scan = layers.flash_attention, ssm.ssd_ops.ssd_scan
+    """What chip_smoke counts on the card: one rope_heads, one
+    flash_attention and one ssd_scan call per hybrid layer of a prefill; on
+    the VLM one rope_heads and one causal flash call per self layer and one
+    flash call with causal=False per cross layer, in the stack's order, and
+    in each decode step the cross layers' flash calls alone."""
+    calls = {"flash": [], "ssd": 0, "rope": 0}
+    flash, scan, rope_heads = layers.flash_attention, ssm.ssd_ops.ssd_scan, layers.rope_heads
 
     # the kernel path (the card's choice by device) forced with use_kernel=True;
     # the counted ops then serve the plain versions, as the CPU has no kernel
@@ -178,22 +179,29 @@ def test_prefill_runs_each_kernel_once_per_layer(pairs, monkeypatch):
         calls["ssd"] += 1
         return scan(*a, **{**kw, "use_kernel": False})
 
+    def counted_rope(*a, **kw):
+        calls["rope"] += 1
+        return rope_heads(*a, **{**kw, "use_kernel": False})
+
     monkeypatch.setattr(layers, "flash_attention", counted_flash)
+    monkeypatch.setattr(layers, "rope_heads", counted_rope)
     monkeypatch.setattr(ssm.ssd_ops, "ssd_scan", counted_scan)
     cfg, _, _, tp = pairs["hymba"]
     M.prefill(cfg, tp, {"tokens": torch.from_numpy(_tokens(cfg)[:1])}, use_kernel=True)
-    assert calls == {"flash": [True] * cfg.n_layers, "ssd": cfg.n_layers}
+    assert calls == {"flash": [True] * cfg.n_layers, "ssd": cfg.n_layers, "rope": cfg.n_layers}
 
     cfg, _, _, tp = pairs["vlm"]
-    calls["flash"] = []
+    calls["flash"], calls["rope"] = [], 0
     _, tb = _batches(cfg, _tokens(cfg)[:1, :PROMPT])
     _, cache = M.prefill(cfg, tp, tb, max_cache_len=MAX_LEN, use_kernel=True)
     per = cfg.cross_attn_every - 1
     assert calls["flash"] == ([True] * per + [False]) * (cfg.n_layers // cfg.cross_attn_every)
-    calls["flash"] = []
+    assert calls["rope"] == per * (cfg.n_layers // cfg.cross_attn_every)
+    calls["flash"], calls["rope"] = [], 0
     M.decode_step(cfg, tp, cache, {"token": torch.from_numpy(_tokens(cfg)[:1, :1]),
                                    "pos": PROMPT}, use_kernel=True)
     assert calls["flash"] == [False] * (cfg.n_layers // cfg.cross_attn_every)
+    assert calls["rope"] == 0  # decode ropes its one token with the plain `rope`
 
 
 def test_params_from_jax_carries_bf16():

@@ -45,6 +45,7 @@ from repro_torch.configs import ARCHITECTURES
 from repro_torch.convert import params_from_jax
 from repro_torch.data import lm_data
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.rope_heads.ops import rope_heads
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers, model as M
@@ -352,7 +353,7 @@ def _requires_grad(*ts):
     return [t.clone().requires_grad_() for t in ts]
 
 
-@pytest.mark.parametrize("which", ["flash_attention", "ssd_scan"])
+@pytest.mark.parametrize("which", ["flash_attention", "ssd_scan", "rope_heads"])
 def test_kernel_path_raises_on_grad_requiring_inputs(which):
     """The kernels have no backward: on their path (here forced with
     use_kernel=True; on the card by the device) an input that requires
@@ -363,6 +364,10 @@ def test_kernel_path_raises_on_grad_requiring_inputs(which):
     if which == "flash_attention":
         args = [torch.randn(4, 8, 16, generator=g) for _ in range(3)]
         op = lambda *a, **kw: flash_attention(*a, **kw)  # noqa: E731
+    elif which == "rope_heads":
+        args = [torch.randn(1, 8, n, 64, generator=g) for n in (4, 2, 2)]
+        pos = torch.arange(8)[None]
+        op = lambda *a, **kw: rope_heads(*a, pos, 1e4, **kw)  # noqa: E731
     else:
         args = [torch.randn(1, 32, 2, 8, generator=g), torch.rand(1, 32, 2, generator=g),
                 torch.randn(2, generator=g), torch.randn(1, 32, 1, 4, generator=g),
@@ -384,12 +389,13 @@ def test_kernel_path_raises_on_grad_requiring_inputs(which):
 @pytest.mark.parametrize("case", ["hymba", "mamba2", "vlm"])
 def test_forward_threads_use_kernel_to_both_ops(pairs, case):
     """forward(use_kernel=True) with grad-requiring params reaches the
-    kernel ops' check: attention first in hymba, the scan in mamba2, the
-    cross layer's attention in the VLM (called alone)."""
+    kernel ops' check: the attention block's rope_heads first in hymba and
+    in the VLM's first (self-attention) layer, the scan in mamba2, the cross
+    layer's flash attention in the VLM (called alone)."""
     cfg, _, _, npp = pairs[case]
     tp = _port_params(npp)
     _, tb = _batches(cfg, _tokens(cfg))
-    first = "ssd_scan" if cfg.arch_type == "ssm" else "flash_attention"
+    first = "ssd_scan" if cfg.arch_type == "ssm" else "rope_heads"
     with pytest.raises(ValueError, match=f"{first}: {NO_BACKWARD}"):
         M.forward(cfg, tp, tb, use_kernel=True)
     if cfg.cross_attn_every:
